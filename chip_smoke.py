@@ -11,16 +11,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    epochs, equal vectors) at C in {3, 9} and N in {1, 1023, 1025,
    68,993,773}; each must be bit-identical to its plain PyTorch version
    on the card.  At the largest N each kernel is timed with CUDA events.
+2b. ``segment_mp`` (fused message passing) against its plain version in
+   fp64 on the card: the reference tests' cases (fp32, bf16, the 17x3
+   ragged case), a hub, gat-cora's D = 1433, and one case at
+   ogb-products' shape (N = 2,449,029, E = 61,859,140, D = 100, F = 64,
+   power-law), timed beside its plain version and
+   ``torch.sparse.mm(A, x) @ w``.
 3. The system end to end: a port ``Weaver`` on the card with the
    device-resident column plane and group commit loads a seeded social
    graph through ``begin_tx``/``run_tx`` and runs a seeded mix of
    transactions, node programs, GC, snapshots and ``visible_edges_at``.
    The same stream runs through a port ``Weaver(device="cpu")`` in a
    worker process at the same time; results, counters and snapshot
-   arrays must be identical.  A smaller deployment
-   without the column plane repeats this, and its final snapshot is also
-   held against the per-object Python snapshot oracle.
-4. The kernels' launch counts on the main path (each > 0 on the card,
+   arrays must be identical.
+3b. GNN training over the live snapshot: the main deployment's card
+   Weaver feeds ``DynamicGraphPipeline`` batches (a writer tx commits
+   between batches); each batch goes through ``mp.propagate_matmul`` on
+   the kernel at gin-tu's widths (held against the plain version in
+   fp64) and through AdamW steps of gin-tu at its published width
+   (5 layers, d = 64) on the card and, in lockstep in this process on
+   the same batches, on the CPU; logits, losses and parameters must
+   agree at every step.  Then a smaller deployment without the column
+   plane repeats phase 3, and its final snapshot is also held against
+   the per-object Python snapshot oracle.
+4. The kernels' launch counts on the main paths (each > 0 on the card,
    0 on the CPU), then one JSON line per the kernels table, the card's
    name and power limit, and last the result line.
 
@@ -47,20 +61,27 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import core  # noqa: E402
 from repro_torch.core import analytics  # noqa: E402
 from repro_torch.core.clock import NO_STAMP  # noqa: E402
-from repro_torch.data import synth  # noqa: E402
+from repro_torch.data import graphs, synth  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mv_visibility import kernel as mvk  # noqa: E402
 from repro_torch.kernels.mv_visibility import ops as mvops  # noqa: E402
 from repro_torch.kernels.mv_visibility import ref as mvref  # noqa: E402
+from repro_torch.kernels.segment_mp import kernel as smpk  # noqa: E402
+from repro_torch.kernels.segment_mp import ops as smpops  # noqa: E402
+from repro_torch.kernels.segment_mp import ref as smpref  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit rate (fp32 row)
+FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 LIVEJOURNAL_EDGES = 68_993_773  # SNAP soc-LiveJournal1
+OGB_PRODUCTS = (2_449_029, 61_859_140, 100, 64)  # N, E, d_feat, gin width
 
 KERNELS = {           # name -> what it replaces
     "before": "src/repro/kernels/mv_visibility/kernel.py:75",
     "visibility": "src/repro/kernels/mv_visibility/kernel.py:104",
     "before_pairs": "src/repro/core/writepath.py:144",
+    "segment_mp": "src/repro/kernels/segment_mp/kernel.py:82",
 }
 # GC every simulated second and a WAL checkpoint every 4096 records
 # (defaults 0.05 s / 256): both rewrite O(store) state in the pure-Python
@@ -197,6 +218,414 @@ def phase_kernels(seed: int, big_n: int, reps: int) -> dict:
     for (name, c), t in timings.items():
         t["max_abs_err"] = max_err[name]
     return timings
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: segment_mp against its plain version
+# ---------------------------------------------------------------------------
+
+# (N, E, D, F, dtype, hub row, tolerance kind): the reference tests' cases
+# (tests/test_kernels.py) at their tolerances, a hub taking half the edges
+# (split into chunks by the kernel) and gat-cora's input width D = 1433
+MP_CASES = [
+    (64, 256, 16, 32, torch.float32, None, "ref"),
+    (128, 1000, 64, 64, torch.float32, None, "ref"),
+    (300, 2000, 32, 8, torch.float32, None, "ref"),
+    (128, 512, 128, 128, torch.bfloat16, None, "ref"),
+    (17, 3, 8, 16, torch.float32, None, "ref"),
+    (100, 3000, 16, 16, torch.float32, 7, "hub"),
+    (2708, 10556, 1433, 8, torch.float32, None, "scale"),
+]
+MP_TOL = 1e-5       # "scale" cases, full size and phase 3b: max |got - y|
+#                     <= MP_TOL * max |y|, against the fp64 truth y; and
+MP_ROW_TOL = 1e-4   # |got - y| <= MP_ROW_TOL * ((sum of |x_u|) @ |w|) at
+#                     every output, that output's own rounding scale: fp32
+#                     sums of k terms stay within k * 2^-24 of it (to first
+#                     order), under 1e-4 up to k = deg + D ~ 1,600; a
+#                     dropped or doubled edge reads 1e-2 or more at these
+#                     shapes (except in rows of thousands of edges)
+
+
+def plain64(x, w, src, dst, n: int, chunk: int = 1 << 22) -> torch.Tensor:
+    """The fp64 truth of ``y[v] = sum x[src] @ w``: the x rows summed per
+    dst in fp64 (in edge chunks, so the gather stays a few GB), then @ w
+    in fp64; equal to the plain version's order by linearity."""
+    agg = torch.zeros((n, x.shape[1]), dtype=torch.float64, device=x.device)
+    for i in range(0, src.numel(), chunk):
+        agg.index_add_(0, dst[i:i + chunk], x[src[i:i + chunk]].double())
+    return agg @ w.double()
+
+
+def max_diff(got: torch.Tensor, truth: torch.Tensor) -> float:
+    return float((got.double() - truth).abs().max()) if got.numel() else 0.0
+
+
+def mp_errors(got, x, w, src, dst, n: int) -> tuple:
+    """(worst |got - y| / ((sum |x_u|) @ |w|) over the outputs, max
+    |got - y|, max |y|) against the fp64 truth y."""
+    if not got.numel():
+        return 0.0, 0.0, 0.0
+    truth = plain64(x, w, src, dst, n)
+    diff = (got.double() - truth).abs()
+    top = float(truth.abs().max())
+    del truth
+    ratio = diff / plain64(x.abs(), w.abs(), src, dst, n)
+    # 0/0 (no edges, or all-zero inputs, and got exact) is no error
+    return (float(ratio.nan_to_num_(nan=0.0, posinf=float("inf")).max()),
+            float(diff.max()), top)
+
+
+def mp_check(got, x, w, src, dst, n: int, kind: str) -> tuple:
+    """(passes, max |err|, the tolerance in words) of one segment_mp
+    result ``got`` from ``x.to(got.dtype)``, ``w.to(got.dtype)``."""
+    xt, wt = x.to(got.dtype), w.to(got.dtype)
+    if kind == "scale":
+        rel, err, top = mp_errors(got, xt, wt, src, dst, n)
+        return (rel <= MP_ROW_TOL and err <= MP_TOL * top, err,
+                f"{rel:.3g} of each output's rounding scale <= {MP_ROW_TOL}; "
+                f"<= {MP_TOL} * max|y| = {MP_TOL * top:.3g}")
+    # the reference tests' tolerances, against the plain version in fp64
+    # (bf16: of the bf16 inputs) rather than in fp32, whose atomic sums
+    # on the card add their own rounding
+    want = smpref.segment_matmul_reduce_ref(xt.double(), wt.double(), src,
+                                            dst, n)
+    rtol, atol = {"hub": (1e-4, 1e-4)}.get(
+        kind, (3e-2, 3e-1) if got.dtype == torch.bfloat16 else (1e-5, 1e-5))
+    diff = (got.double() - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    return (bool((diff <= atol + rtol * want.abs()).all()), err,
+            f"rtol {rtol} atol {atol}")
+
+
+def mp_case(rng, n, e, d, f, hub, dev):
+    """Seeded normal x (n, d) and w (d, f) in fp32 and uniform int32
+    edges; with ``hub``, half the edges go to that dst row."""
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(d, f)).astype(np.float32))
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    if hub is not None:
+        dst = np.where(rng.random(e) < 0.5, hub, dst).astype(np.int32)
+    return (x.to(dev), w.to(dev), torch.from_numpy(src).to(dev),
+            torch.from_numpy(dst).to(dev))
+
+
+def device_search(dev):
+    """``graphs.random_graph``'s inverse-CDF search, on ``dev``."""
+    def search(cdf: np.ndarray, u: np.ndarray) -> torch.Tensor:
+        return torch.searchsorted(torch.from_numpy(cdf).to(dev),
+                                  torch.from_numpy(u).to(dev),
+                                  right=True).int()
+    return search
+
+
+def mp_bound(n, e, d, f, elem_bytes) -> tuple:
+    """(bound ms, what binds): the bytes the function must move (indices
+    once, x once, W once, y once) over the HBM rate, and its fp32
+    operations (2*N*D*F for the @ W, E*D for the sums) over the fp32
+    rate, the larger of the two."""
+    nbytes = e * 4 + (n + 1) * 4 + (n * d + d * f + n * f) * elem_bytes
+    ops = 2 * n * d * f + e * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_segment_mp(seed: int, full: tuple, reps: int) -> dict:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    max_err = 0.0
+    for n, e, d, f, dt, hub, kind in MP_CASES:
+        x, w, src, dst = mp_case(rng, n, e, d, f, hub, dev)
+        got = smpops.segment_matmul_reduce(x.to(dt), w.to(dt), src, dst, n)
+        torch.cuda.synchronize()
+        if got.dtype != dt or tuple(got.shape) != (n, f):
+            raise PhaseError(f"segment_mp {n}x{d}->{f}: got {got.dtype} "
+                             f"{tuple(got.shape)}")
+        ok, err, tol = mp_check(got, x, w, src, dst, n, kind)
+        if not ok:
+            raise PhaseError(f"segment_mp N={n} E={e} D={d} F={f} {dt}: "
+                             f"max |err| {err} exceeds {tol}")
+        if dt == torch.float32:
+            max_err = max(max_err, err)
+        print(f"segment_mp == plain at N={n} E={e} D={d} F={f} {dt} "
+              f"({kind}): max |err| {err:.3g} ({tol})", flush=True)
+
+    n, e, d, f = full
+    t0 = time.perf_counter()
+    src, dst = graphs.random_graph(rng, n, e, power_law=True,
+                                   search=device_search(dev))
+    dst, order = torch.sort(dst, stable=True)
+    src = src[order]
+    del order
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    w = torch.randn((d, f), generator=gen, device=dev) / d ** 0.5
+    indptr = smpops.csr_indptr(dst, n)
+    deg = (indptr[1:] - indptr[:-1])
+    n_heavy = int((deg > smpk.CHUNK).sum())
+    print(f"segment_mp full size: power-law graph N={n} E={e} D={d} F={f} "
+          f"made in {time.perf_counter() - t0:.1f} s; max in-degree "
+          f"{int(deg.max())}, {n_heavy} rows above {smpk.CHUNK} edges",
+          flush=True)
+    del deg
+    got = smpk.segment_mp(x, w, src, indptr)
+    rel, err, top = mp_errors(got, x, w, src, dst, n)
+    if not (rel <= MP_ROW_TOL and err <= MP_TOL * top):
+        raise PhaseError(f"segment_mp at N={n}: max |err| {err} (max |y| "
+                         f"{top}, tolerance {MP_TOL} of it), {rel} of an "
+                         f"output's rounding scale (tolerance {MP_ROW_TOL})")
+    del got
+    truth = plain64(x, w, src, dst, n)
+    plain_err = max_diff(smpref.segment_matmul_reduce_ref(
+        x, w, src, dst, n), truth)
+    a_csr = torch.sparse_csr_tensor(indptr, src, torch.ones(
+        e, device=dev), size=(n, n))
+    lib_err = max_diff(torch.sparse.mm(a_csr, x) @ w, truth)
+    print(f"segment_mp at N={n}: max |kernel - fp64| {err:.4g} (max |y| "
+          f"{top:.4g}), worst output {rel:.3g} of its rounding scale "
+          f"(sum |x_u|) @ |w|; plain fp32 {plain_err:.4g}, sparse.mm@w "
+          f"{lib_err:.4g} (tolerances {MP_TOL} * max |y|, {MP_ROW_TOL} of "
+          f"the rounding scale)", flush=True)
+    del truth
+    torch.cuda.empty_cache()
+    k_ms = time_ms(lambda: smpk.segment_mp(x, w, src, indptr), reps)
+    p_ms = time_ms(lambda: smpref.segment_matmul_reduce_ref(
+        x, w, src, dst, n), max(3, reps // 4))
+    torch.cuda.empty_cache()
+    l_ms = time_ms(lambda: torch.sparse.mm(a_csr, x) @ w, max(3, reps // 4))
+    bound_ms, bound_by = mp_bound(n, e, d, f, 4)
+    print(f"kernel segment_mp N={n} E={e} D={d} F={f} fp32: {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, sparse.mm@w {l_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); gathered x rows "
+          f"{e * d * 4 / k_ms / 1e6:.1f} GB/s", flush=True)
+    del x, w, src, dst, indptr, a_csr
+    torch.cuda.empty_cache()
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": max(max_err, err)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: GNN training over the live snapshot
+# ---------------------------------------------------------------------------
+
+# Card vs CPU run of gin-tu, in lockstep: every step starts both runs from
+# the card's parameters and optimizer state.  Independent fp32 runs of this
+# model on this graph cannot be compared over many steps: GIN's sum
+# aggregation over the power-law snapshot grows activations by about the
+# in-degree per layer (logits of 1e10-1e11), the loss is a difference of
+# such logits, and Adam turns the sign of every near-zero gradient
+# component into a full step, so two fp32 runs drift apart whatever the
+# device (on the CPU at 20k users, fp32 vs fp64: loss 30 % apart by step
+# 10).  Within one step the two runs differ only by summation order:
+GNN_LOGIT_TOL = 1e-3   # max |logit diff| / max |logit|: five layers of fp32
+#                        sums over in-degrees up to ~31k (fp32 vs fp64 on
+#                        the CPU at 20k users: 2.7e-5)
+GNN_LOSS_TOL = 1e-3    # |loss diff| / mean over labelled vertices of max
+#                        |logit| (the loss's own scale; relative to the loss
+#                        itself it is ill-conditioned, H100 step 1: 1.1e-4)
+GNN_GRAD_TOL = 2e-2    # worst parameter tensor's error in the step's share
+#                        of each Adam moment, m - b1 m_0 = (1 - b1) g and
+#                        v - b2 v_0 = (1 - b2) g^2 (both runs start from the
+#                        same moments), relative to max(its norm,
+#                        GNN_GRAD_FLOOR * the norm over all tensors): the
+#                        backward pass, tensor by tensor.  H100 vs CPU over
+#                        36 steps: up to 5.5e-4 (layers.1.mlp.0.w); a
+#                        pre-activation near zero whose sign differs between
+#                        the runs switches a ReLU path, so the error is
+#                        heavy-tailed.  A doubled, halved or sign-flipped
+#                        gradient reads 0.5 to 2
+GNN_GRAD_FLOOR = 1e-3  # a GIN eps scalar's gradient is one cancelling sum
+#                        over every feature of every vertex, often 1e-5 of
+#                        the whole, so its error relative to itself is
+#                        heavy-tailed too (H100 vs CPU: up to 9.2e-4)
+GNN_STEP_TOL = 1e-4    # worst parameter tensor's ||dp - dp_adamw|| /
+#                        ||dp_adamw||: the card's change against AdamW's
+#                        update worked out in fp64 from the card's own
+#                        moments, so fp32 rounding only; a frozen step reads
+#                        1, a sign-flipped one 2.  (Against the CPU run's
+#                        change it is no check: Adam turns a gradient element
+#                        at its rounding noise into a full lr step either
+#                        way, 5.8e-2 of one tensor's change in an H100 run)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in fp64 (0 when both are zero)."""
+    got, want = got.double(), want.double()
+    num, den = float((got - want).norm()), float(want.norm())
+    return num / den if den else (0.0 if num == 0 else float("inf"))
+
+
+def moment_errs(card_m: dict, host_m: dict, m0: dict, decay: float) -> dict:
+    """Per tensor, ||d_card - d_host|| / max(||d_host||, GNN_GRAD_FLOOR *
+    ||all of d_host||) with d = m - decay * m0, the step's share of an
+    Adam moment."""
+    d_card = {k: card_m[k].cpu().double() - decay * m0[k].double()
+              for k in m0}
+    d_host = {k: host_m[k].double() - decay * m0[k].double() for k in m0}
+    floor = GNN_GRAD_FLOOR * float(torch.cat(
+        [d.flatten() for d in d_host.values()]).norm())
+    return {k: float((d_card[k] - d_host[k]).norm())
+            / max(float(d_host[k].norm()), floor, 1e-300) for k in m0}
+
+
+def update_errs(model, state, p0: dict, opt) -> dict:
+    """Per tensor, the relative error of the step's change of ``model``'s
+    parameters from ``p0`` against AdamW's update worked out in fp64 from
+    the run's own moments ``state``: -lr (m^ / (sqrt(v^) + eps) + wd p0)."""
+    t = int(state.step)
+    lr = float(adamw.schedule_lr(opt, t))
+    bc1, bc2 = 1 - opt.b1 ** t, 1 - opt.b2 ** t
+    out = {}
+    for k, p in model.named_parameters():
+        m, v = state.mu[k].cpu().double(), state.nu[k].cpu().double()
+        want = -lr * (m / bc1 / ((v / bc2).sqrt() + opt.eps)
+                      + opt.weight_decay * p0[k].double())
+        out[k] = rel_err(p.detach().cpu().double() - p0[k].double(), want)
+    return out
+
+
+def phase_gnn(w, seed: int, steps: int, device: str = "cuda") -> dict:
+    """Train gin-tu at its published width on ``w``'s live snapshot, on
+    ``device`` (the card) and, in lockstep, on the CPU in this process, on
+    the same batches.  ``device="cpu"`` rehearses the phase without a
+    card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DynamicGraphPipeline, \
+        batch_to_torch
+    from repro_torch.models import gnn, mp
+    from repro_torch.optim import AdamWConfig, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    cfg = get_arch("gin-tu").config           # 5 layers, d = 64
+    _, stamp, _ = w.run_program("count_edges", [("u0", None)])
+    ga = analytics.snapshot_arrays(w, stamp)
+    pad_nodes = ga.n_nodes + 256              # room for the writers' vertices
+    pad_edges = ga.edge_src.size + 4096       # the sentinel row is a hub
+    pipe = DynamicGraphPipeline(w, d_feat=cfg.d_feat,
+                                n_classes=cfg.n_classes,
+                                pad_nodes=pad_nodes, pad_edges=pad_edges,
+                                seed=seed)
+    written = [0]
+
+    def writer(wv):
+        tx = wv.begin_tx()
+        vid = tx.create_vertex(f"gnn{written[0]}")
+        tx.create_edge(vid, "u0")
+        written[0] += 1
+        if not wv.run_tx(tx).ok:
+            raise PhaseError("phase 3b: writer tx failed")
+
+    card = gnn.init_model(cfg, torch.Generator().manual_seed(seed))
+    host = gnn.init_model(cfg)
+    host.load_state_dict(card.state_dict())
+    card = card.to(dev)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=30)
+    step = make_train_step(lambda m, b: gnn.gnn_loss(m, b, cfg), opt)
+    st_card = adamw.init(dict(card.named_parameters()))
+    st_host = adamw.init(dict(host.named_parameters()))
+    gen = torch.Generator().manual_seed(seed + 1)
+    w_in = (torch.randn((cfg.d_feat, cfg.d_hidden), generator=gen)
+            / cfg.d_feat ** 0.5).to(dev)
+    w_hid = (torch.randn((cfg.d_hidden, cfg.d_hidden), generator=gen)
+             / cfg.d_hidden ** 0.5).to(dev)
+    print(f"gnn: gin-tu {cfg.n_layers} layers d={cfg.d_hidden} on the live "
+          f"snapshot ({ga.n_nodes} vertices, {ga.edge_src.size} edges; "
+          f"pads {pad_nodes}/{pad_edges})", flush=True)
+    losses, secs = [], {"batch": 0.0, "kernel": 0.0, "cuda_step": 0.0,
+                        "cpu_step": 0.0}
+    mp_err = 0.0
+    errs = []
+    batches = pipe.batches(mutate_between=writer)
+    for i in range(steps):
+        t0 = time.perf_counter()
+        b = next(batches)
+        tc, th = batch_to_torch(b, dev), batch_to_torch(b, "cpu")
+        t1 = time.perf_counter()
+        secs["batch"] += t1 - t0
+        src, dst = tc["edge_src"], tc["edge_dst"]
+        hid = torch.tanh(tc["x"] @ w_in)
+        mp.set_use_kernel(True)
+        try:
+            outs = [(xin, wm, mp.propagate_matmul(xin, wm, src, dst,
+                                                  pad_nodes, dst_sorted=True))
+                    for xin, wm in ((tc["x"], w_in), (hid, w_hid))]
+        finally:
+            mp.set_use_kernel(False)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        secs["kernel"] += t2 - t1
+        for xin, wm, got in outs:
+            rel, err, top = mp_errors(got, xin, wm, src, dst, pad_nodes)
+            if not (rel <= MP_ROW_TOL and err <= MP_TOL * top):
+                raise PhaseError(f"phase 3b batch {i}: propagate_matmul on "
+                                 f"the kernel off by {err} (max |y| {top}), "
+                                 f"{rel} of an output's rounding scale")
+            mp_err = max(mp_err, rel)
+        t3 = time.perf_counter()
+        p0 = {k: v.detach().clone() for k, v in host.named_parameters()}
+        mu0 = {k: v.clone() for k, v in st_host.mu.items()}
+        nu0 = {k: v.clone() for k, v in st_host.nu.items()}
+        with torch.no_grad():
+            logits_c = card(tc).cpu()
+        card, st_card, mc = step(card, st_card, tc)
+        lc = float(mc["loss"])
+        t4 = time.perf_counter()
+        with torch.no_grad():
+            logits_h = host(th)
+        host, st_host, mh = step(host, st_host, th)
+        lh = float(mh["loss"])
+        t5 = time.perf_counter()
+        secs["cuda_step"] += t4 - t3
+        secs["cpu_step"] += t5 - t4
+        top = logits_h.abs().amax(dim=-1)
+        logit_err = float((logits_c - logits_h).abs().max() / top.max())
+        loss_err = abs(lc - lh) / float(top[th["label_mask"] > 0].mean())
+        grad_errs = moment_errs(st_card.mu, st_host.mu, mu0, opt.b1)
+        grad_errs.update({f"{k} (v)": e for k, e in moment_errs(
+            st_card.nu, st_host.nu, nu0, opt.b2).items()})
+        step_errs = update_errs(card, st_card, p0, opt)
+        g_key = max(grad_errs, key=grad_errs.get)
+        s_key = max(step_errs, key=step_errs.get)
+        grad_err, step_err = grad_errs[g_key], step_errs[s_key]
+        errs.append((logit_err, loss_err, grad_err, step_err))
+        print(f"gnn step {i + 1}: {int(b['label_mask'].sum())} live "
+              f"vertices, loss cuda {lc!r} cpu {lh!r}, max |logit| "
+              f"{float(top.max()):.4g}, grad norm {float(mh['grad_norm']):.4g}"
+              f"; errors logits {logit_err:.3g} loss {loss_err:.3g} grad "
+              f"{grad_err:.3g} ({g_key}) step {step_err:.3g} ({s_key}); "
+              f"batch {t1 - t0:.2f} s, cuda step {t4 - t3:.3f} s, cpu step "
+              f"{t5 - t4:.2f} s", flush=True)
+        if not (np.isfinite(lc) and logit_err <= GNN_LOGIT_TOL
+                and loss_err <= GNN_LOSS_TOL and grad_err <= GNN_GRAD_TOL
+                and step_err <= GNN_STEP_TOL):
+            raise PhaseError(
+                f"phase 3b step {i + 1}: card != CPU (logits {logit_err} > "
+                f"{GNN_LOGIT_TOL}, loss {loss_err} > {GNN_LOSS_TOL}, "
+                f"gradient {grad_err} > {GNN_GRAD_TOL} or step {step_err} > "
+                f"{GNN_STEP_TOL}), or loss {lc}")
+        losses.append((lc, lh))
+        host.load_state_dict({k: v.cpu() for k, v in
+                              card.state_dict().items()})
+        st_host = adamw.AdamWState(
+            step=st_card.step.cpu(),
+            mu={k: v.cpu() for k, v in st_card.mu.items()},
+            nu={k: v.cpu() for k, v in st_card.nu.items()})
+    worst = [max(e[k] for e in errs) for k in range(4)]
+    print(f"gnn: card == CPU in lockstep over {steps} AdamW steps (worst "
+          f"errors: logits {worst[0]:.3g} <= {GNN_LOGIT_TOL}, loss "
+          f"{worst[1]:.3g} <= {GNN_LOSS_TOL}, gradient {worst[2]:.3g} <= "
+          f"{GNN_GRAD_TOL} (floor {GNN_GRAD_FLOOR} of the whole), step "
+          f"{worst[3]:.3g} <= {GNN_STEP_TOL}); "
+          f"propagate_matmul on the kernel worst output {mp_err:.3g} of its "
+          f"rounding scale <= {MP_ROW_TOL}; host seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; snapshot engine {pipe.snapshot_stats()}", flush=True)
+    return {"losses": losses, "errors": worst, "secs": secs}
 
 
 # ---------------------------------------------------------------------------
@@ -444,9 +873,10 @@ def cpu_twin(*args):
 
 
 def deployment(label: str, seed: int, n_users: int, plane: bool,
-               n_prog: int, n_tx: int, oracle: bool) -> dict:
+               n_prog: int, n_tx: int, oracle: bool, keep: bool = False):
     """Run one seeded stream on the card and, at the same time in a
-    worker process, on the CPU; compare the two runs."""
+    worker process, on the CPU; compare the two runs.  Returns the card
+    run's launch counts and, when ``keep``, its Weaver (else None)."""
     args = (seed, n_users, plane, n_prog, n_tx)
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
@@ -473,7 +903,8 @@ def deployment(label: str, seed: int, n_users: int, plane: bool,
             print(f"{label}: snapshot == per-object Python oracle "
                   f"({got.n_nodes} vertices, {got.edge_src.size} edges)",
                   flush=True)
-        del w
+        if not keep:
+            w = None
         n_steps, cpu_recs, cpu_counts, cpu_secs, cpu_line = twin.result()
     print(f"{label} device=cpu (worker process, concurrent): {n_steps} "
           f"steps in {cpu_secs:.2f} s host wall clock, launches "
@@ -490,7 +921,7 @@ def deployment(label: str, seed: int, n_users: int, plane: bool,
     print(f"{label}: CUDA run == CPU run over {len(steps)} steps "
           f"(results, TxResults, counters, snapshot arrays, "
           f"visible_edges_at)", flush=True)
-    return counts
+    return counts, w
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +938,13 @@ def main(argv=None) -> int:
                     help="node programs of each kind per deployment")
     ap.add_argument("--n-tx", type=int, default=300)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--mp-n", type=int, default=OGB_PRODUCTS[0],
+                    help="nodes of the full-size segment_mp case "
+                         "(ogb-products)")
+    ap.add_argument("--mp-e", type=int, default=OGB_PRODUCTS[1],
+                    help="edges of the full-size segment_mp case")
+    ap.add_argument("--gnn-steps", type=int, default=12,
+                    help="AdamW steps of gin-tu on the live snapshot")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -527,14 +965,29 @@ def main(argv=None) -> int:
             print(f"nvcc {name}: {line}")
 
     timings = phase_kernels(args.seed, args.kernel_n, args.reps)
+    mp_timing = phase_segment_mp(args.seed, (args.mp_n, args.mp_e,
+                                             *OGB_PRODUCTS[2:]), args.reps)
 
-    main_counts = deployment("main", args.seed, args.users, plane=True,
-                             n_prog=args.n_prog, n_tx=args.n_tx,
-                             oracle=False)
-    small_counts = deployment("host-global", args.seed + 1,
-                              args.small_users, plane=False,
-                              n_prog=max(1, args.n_prog // 5),
-                              n_tx=max(1, args.n_tx // 5), oracle=True)
+    main_counts, w = deployment("main", args.seed, args.users, plane=True,
+                                n_prog=args.n_prog, n_tx=args.n_tx,
+                                oracle=False, keep=True)
+    # the GNN slice's path, driven on the main deployment's card Weaver
+    mvk.reset_launches()
+    smpk.reset_launches()
+    t0 = time.perf_counter()
+    phase_gnn(w, args.seed, args.gnn_steps)
+    torch.cuda.synchronize()
+    gnn_counts = {**mvk.launches, **smpk.launches}
+    print(f"gnn phase: {time.perf_counter() - t0:.2f} s host wall clock, "
+          f"launches {gnn_counts}", flush=True)
+    if not gnn_counts["segment_mp"]:
+        raise PhaseError(f"gnn: segment_mp was never launched on the path: "
+                         f"{gnn_counts}")
+    del w
+    small_counts, _ = deployment("host-global", args.seed + 1,
+                                 args.small_users, plane=False,
+                                 n_prog=max(1, args.n_prog // 5),
+                                 n_tx=max(1, args.n_tx // 5), oracle=True)
     for label, counts in (("main", main_counts),
                           ("host-global", small_counts)):
         missing = [k for k in ("before", "before_pairs") if not counts[k]]
@@ -545,14 +998,18 @@ def main(argv=None) -> int:
                              f"launched on the path: {counts}")
 
     rows = []
-    for name, replaces in KERNELS.items():
-        t = timings[(name, 3)]
+    for name in ("before", "visibility", "before_pairs"):
+        t, replaces = timings[(name, 3)], KERNELS[name]
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/mv_visibility.cu",
                      "replaces": replaces, "launches": main_counts[name],
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": "bytes", "library_ms": None})
+    rows.append({"name": "segment_mp", "route": "cuda",
+                 "source": "src/repro_torch/csrc/segment_mp.cu",
+                 "replaces": KERNELS["segment_mp"],
+                 "launches": gnn_counts["segment_mp"], **mp_timing})
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

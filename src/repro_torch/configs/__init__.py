@@ -1,0 +1,39 @@
+"""Architecture registry: ``get_arch(<id>)`` resolution.
+
+Holds the four GNN architectures (gin-tu, pna, gat-cora, dimenet), each
+with its shape set, and the paper system's own deployment config.  The
+LM and recsys architectures join with their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+from .base import ArchSpec, ShapeSpec
+
+from . import dimenet, gat_cora, gin_tu, pna
+from .weaver_store import PAPER_DEPLOYMENT
+
+_MODULES = [gin_tu, pna, dimenet, gat_cora]
+
+ARCHS: Dict[str, ArchSpec] = {m.SPEC.arch_id: m.SPEC for m in _MODULES}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+    return ARCHS[arch_id]
+
+
+def all_cells(include_skipped: bool = True) -> List[tuple]:
+    """Every (arch_id, shape_name, ShapeSpec) cell of the grid."""
+    out = []
+    for aid, spec in ARCHS.items():
+        for sname, sh in spec.shapes.items():
+            if include_skipped or not sh.skip:
+                out.append((aid, sname, sh))
+    return out
+
+
+__all__ = ["ARCHS", "get_arch", "all_cells", "ArchSpec", "ShapeSpec",
+           "PAPER_DEPLOYMENT"]

@@ -7,6 +7,8 @@ CPU tensors to the plain version), ref.py (plain PyTorch version).
   mv_visibility   — batched refinable-timestamp compares (``before``,
                     ``visibility``, ``before_pairs``): the multi-version
                     read path and the store's write validation
-  segment_mp      — sorted-segment reductions for node programs (the
-                    message-passing kernel comes with the GNN slice)
+  segment_mp      — fused message passing ``y[v] = sum x[u] @ W``
+                    (``csrc/segment_mp.cu``) behind the GNN seam
+                    ``models.mp.propagate_matmul``, plus the
+                    sorted-segment reductions of node programs
 """

@@ -5,12 +5,17 @@ absent: ``python -m pytest -q tests/test_torch_kernels_cuda.py`` on a
 CUDA machine.  Without a card the kernel test skips with its reason;
 the build helpers are checked everywhere."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mv_visibility import kernel, ref
+from repro_torch.kernels.segment_mp import kernel as smp_kernel
+from repro_torch.kernels.segment_mp import ops as smp_ops
 
 NO_STAMP = ref.NO_STAMP
 
@@ -56,7 +61,7 @@ def test_cuda_kernels_match_plain():
 
 
 def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch, tmp_path):
-    assert build.sources() == ["mv_visibility"]
+    assert build.sources() == ["mv_visibility", "segment_mp"]
     path = build.library_path("mv_visibility")
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path("mv_visibility")       # stable key
@@ -64,3 +69,49 @@ def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc()
+
+
+def smoke():
+    """chip_smoke.py, whose segment_mp cases and checks this file shares."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_segment_mp_kernel_matches_plain():
+    """Card only: the segment_mp kernel == its plain version on the
+    device at chip_smoke's cases and tolerances (the reference tests'
+    cases, a hub row split into chunks, gat-cora's D = 1433, bf16) and at
+    F = 300 with a hub; each call is one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    cs = smoke()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    smp_kernel.reset_launches()
+    cases = cs.MP_CASES + [(1000, 4000, 64, 300, torch.float32, 3, "hub")]
+    for n, e, d, f, dt, hub, kind in cases:
+        x, w, src, dst = cs.mp_case(rng, n, e, d, f, hub, dev)
+        got = smp_ops.segment_matmul_reduce(x.to(dt), w.to(dt), src, dst, n)
+        assert got.dtype == dt and got.shape == (n, f)
+        ok, err, tol = cs.mp_check(got, x, w, src, dst, n, kind)
+        assert ok, f"N={n} E={e} D={d} F={f} {dt}: max |err| {err}; {tol}"
+    torch.cuda.synchronize()
+    assert smp_kernel.launches["segment_mp"] == len(cases)
+    smp_kernel.reset_launches()
+
+
+def test_segment_mp_wrapper_refuses_cpu_and_grad():
+    """The kernel wrapper launches on CUDA tensors or raises: it refuses
+    CPU tensors, and inputs that require grad (it has no backward)."""
+    before = smp_kernel.launches["segment_mp"]
+    x, w, src, dst = smoke().mp_case(np.random.default_rng(0), 10, 30, 4, 4,
+                                     None, "cpu")
+    order = torch.argsort(dst, stable=True)
+    src, dst = src[order], dst[order]
+    indptr = smp_ops.csr_indptr(dst, 10)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        smp_kernel.segment_mp(x, w, src, indptr)
+    with pytest.raises(ValueError, match="no backward"):
+        smp_kernel.segment_mp(x, w.requires_grad_(), src, indptr)
+    assert smp_kernel.launches["segment_mp"] == before
