@@ -34,9 +34,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    agree at every step.  Then a smaller deployment without the column
    plane repeats phase 3, and its final snapshot is also held against
    the per-object Python snapshot oracle.
-4. The kernels' launch counts on the main paths (each > 0 on the card,
-   0 on the CPU), then one JSON line per the kernels table, the card's
-   name and power limit, and last the result line.
+2c. ``flash_attention`` against its plain version in fp32 on the card:
+   the reference tests' cases, causal Sq > Sk (rows with no valid key),
+   ragged Sq and Sk, n_rep 1, 4 and 8, D up to 256, per-row kv_len over
+   a strided cache (windows wholly past a full cache among them),
+   constant v, phase 4's shapes; then gemma3-1b's heads (4 query heads,
+   1 KV head, D = 256, bf16) at the LM shapes' 32k: prefill of one
+   prompt (global and window 512) and decode at batch 128 with per-row
+   kv_len, timed beside the plain version and
+   ``scaled_dot_product_attention``.  bf16 results are held to each
+   output row's own scale (``FLASH_ROW_TOL``); ``scripts/flash_mutants.py``
+   shows that broken copies of the kernel fail these checks and
+   phase 4's.
+2d. ``embedding_bag`` against its plain version: the reference tests'
+   cases, an all-pad bag, mean mode with weights in bf16, one-index bags
+   (bit for bit); then sasrec's table (1,000,032 x 50 fp32) at
+   train_batch (65,536 bags of 50, 20 % pads, sum and mean) and at phase
+   5's one-index bags (512 x 50 histories, 1,000,000 candidates), timed
+   beside the plain version and ``F.embedding_bag``.
+4. LM serving: gemma3-1b at its published width and depth (26 layers,
+   bf16, random weights from a seed) behind ``LMServer``: batch 8 of
+   1,024-token prompts, then 32 greedy decode steps; the same weights on
+   the plain twin (``set_use_kernel(False)``) in lockstep on the kernel
+   path's tokens; logits must agree at every step and flash_attention
+   must launch 26 x (1 + 32) times.
+5. SASRec serving at its published config behind ``RecServer``: top-10
+   over the 1M-item catalog for 512 users and 1,000,000 candidate scores
+   for one user, held against direct indexing; embedding_bag must launch.
+6. One JSON line per the kernels table, the card's name and power limit,
+   and last the result line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -69,6 +95,11 @@ from repro_torch.kernels.mv_visibility import ref as mvref  # noqa: E402
 from repro_torch.kernels.segment_mp import kernel as smpk  # noqa: E402
 from repro_torch.kernels.segment_mp import ops as smpops  # noqa: E402
 from repro_torch.kernels.segment_mp import ref as smpref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as faops  # noqa: E402
+from repro_torch.kernels.embedding_bag import kernel as ebk  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as ebops  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -82,6 +113,8 @@ KERNELS = {           # name -> what it replaces
     "visibility": "src/repro/kernels/mv_visibility/kernel.py:104",
     "before_pairs": "src/repro/core/writepath.py:144",
     "segment_mp": "src/repro/kernels/segment_mp/kernel.py:82",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
+    "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:61",
 }
 # GC every simulated second and a WAL checkpoint every 4096 records
 # (defaults 0.05 s / 256): both rewrite O(store) state in the pure-Python
@@ -134,6 +167,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def kernel_cases(rng, n: int, c: int, dev):
@@ -407,6 +445,383 @@ def phase_segment_mp(seed: int, full: tuple, reps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+GEMMA = dict(hq=4, hkv=1, d=256)   # gemma3-1b's attention heads
+LM_SEQ = 32_768                # the LM shapes' prefill_32k / decode_32k length
+DECODE_BATCH = 128             # decode_32k's batch
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, kind).  kind "kv_len": K
+# and V are strided views of one packed (B, Sk, 2, Hkv, D) cache and every
+# batch row has its own key length (0, and Sk + 3: decode past a full
+# cache, among them); "const_v": v is 3.5 everywhere, so every output row
+# must be 3.5 (the probabilities sum to 1, the reference tests' row-sum
+# property)
+FLASH_CASES = [
+    # the reference tests' cases (tests/test_kernels.py), one head each
+    (2, 128, 128, 1, 1, 64, True, None, torch.float32, "plain"),
+    (1, 256, 256, 1, 1, 32, True, None, torch.float32, "plain"),
+    (3, 128, 128, 1, 1, 64, False, None, torch.float32, "plain"),
+    (2, 128, 128, 1, 1, 64, True, 64, torch.float32, "plain"),
+    (2, 128, 256, 1, 1, 64, True, None, torch.float32, "plain"),
+    (2, 256, 256, 1, 1, 128, True, None, torch.bfloat16, "plain"),
+    # Sq > Sk causal: the first Sq - Sk rows see no key (mean of v)
+    (2, 200, 77, 4, 2, 64, True, None, torch.float32, "plain"),
+    (1, 150, 40, 8, 8, 128, True, 16, torch.bfloat16, "plain"),
+    # ragged Sq and Sk, n_rep 4 and 8, D 256, a D that takes scalar loads,
+    # a window without the causal mask
+    (2, 173, 291, 8, 1, 64, True, None, torch.bfloat16, "plain"),
+    (1, 37, 100, 4, 1, 256, True, 16, torch.float32, "plain"),
+    (2, 33, 65, 3, 1, 30, True, None, torch.float32, "plain"),
+    (2, 70, 50, 2, 2, 64, False, 30, torch.float32, "plain"),
+    # per-row kv_len over a padded cache read in place (decode and short
+    # prompts), rows with no valid key among them
+    (4, 1, 300, 8, 2, 128, True, None, torch.float32, "kv_len"),
+    (3, 5, 200, 4, 1, 256, True, 40, torch.bfloat16, "kv_len"),
+    (5, 1, 129, 4, 1, 256, True, None, torch.bfloat16, "kv_len"),
+    (1, 128, 64, 1, 1, 64, False, None, torch.float32, "const_v"),
+    (1, 64, 128, 4, 1, 32, True, None, torch.float32, "const_v"),
+    # phase 4's shapes: gemma3-1b's heads, prefill of 8 x 1,024 (local
+    # and global layers) and decode over the 1,056-slot cache
+    (8, 1024, 1024, 4, 1, 256, True, 512, torch.bfloat16, "plain"),
+    (8, 1024, 1024, 4, 1, 256, True, None, torch.bfloat16, "plain"),
+    (8, 1, 1056, 4, 1, 256, True, 512, torch.bfloat16, "kv_len"),
+    # kind "kv_past": every row's kv_len is Sk + Sq, so the last rows' windows
+    # lie wholly past the full cache (no valid key: mean of v) while the
+    # first rows still see keys
+    (1, 20, 256, 1, 1, 64, True, 16, torch.float32, "kv_past"),
+    (2, 40, 256, 4, 1, 128, True, 32, torch.bfloat16, "kv_past"),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # rtol = atol, as
+#              tests/test_kernels.py; against the plain version in fp32
+FLASH_ROW_TOL = 8 * 2.0 ** -8   # and, for bf16, |err| <= this * (|want| +
+#   the rms of want's row over D): the kernel rounds p and o to bf16 (unit
+#   roundoff 2^-8), which puts its error at a few 2^-8 of the row's scale
+#   (a bf16 emulation on the CPU reads up to 2.3 * 2^-8 at these shapes);
+#   one key dropped from a 32k band reads 24 * 2^-8 there, a 64-key tile
+#   dropped 95 and more.  An absolute limit would not do: a row's output
+#   shrinks as 1/sqrt(keys seen) (rms 0.009 at 32k)
+
+
+def flash_case(rng, case, dev):
+    """Seeded normal q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) in the
+    case's dtype on ``dev``, and kv_len (or None)."""
+    b, sq, sk, hq, hkv, d, _, _, dt, kind = case
+    q = torch.from_numpy(rng.normal(size=(b, sq, hq, d)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(b, sk, 2, hkv, d))
+                          .astype(np.float32)).to(dev, dt)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    if kind not in ("kv_len", "kv_past"):
+        k, v = k.contiguous(), v.contiguous()
+    if kind == "const_v":
+        v = torch.full_like(v, 3.5)
+    kv_len = None
+    if kind == "kv_len":
+        lens = rng.integers(0, sk + 1, size=b).astype(np.int32)
+        lens[0], lens[-1] = 0, sk + 3     # none valid; past a full cache
+        kv_len = torch.from_numpy(lens).to(dev)
+    if kind == "kv_past":
+        kv_len = torch.full((b,), sk + sq, dtype=torch.int32, device=dev)
+    return q.to(dev, dt), k, v, kv_len
+
+
+def flash_plain(q, k, v, causal, window, kv_len, q_chunk: int = 2048,
+                b_chunk: int = 8) -> torch.Tensor:
+    """The plain version in fp32 (inputs upcast), ``b_chunk`` batch rows
+    and ``q_chunk`` query rows at a time so that the 32k cases fit."""
+    outs = []
+    for b0 in range(0, q.shape[0], b_chunk):
+        sl = slice(b0, b0 + b_chunk)
+        outs.append(faops.mha_ref(
+            q[sl].float(), k[sl].float(), v[sl].float(), causal=causal,
+            window=window, kv_len=None if kv_len is None else kv_len[sl],
+            q_chunk=q_chunk))
+    return torch.cat(outs)
+
+
+def flash_check(got, q, k, v, causal, window, kv_len, kind) -> tuple:
+    """(passes, max |err|, max |err| / (|want| + rms of want's row), the
+    tolerance in words) of one kernel result."""
+    tol = FLASH_TOL[q.dtype]
+    if kind == "const_v":
+        err = float((got.float() - 3.5).abs().max())
+        return err <= 1e-5 * 3.5, err, err / 7.0, "rtol 1e-5 of v = 3.5"
+    want = flash_plain(q, k, v, causal, window, kv_len)
+    diff = (got.float() - want).abs_()
+    ok = bool((diff <= tol + tol * want.abs()).all())
+    scale = want.abs() + want.pow(2).mean(-1, keepdim=True).sqrt()
+    rel = float((diff / scale.clamp_min(1e-30)).max())
+    words = f"rtol = atol = {tol}"
+    if q.dtype == torch.bfloat16:
+        ok = ok and rel <= FLASH_ROW_TOL
+        words += f"; {rel / 2 ** -8:.3g} * 2^-8 of |want| + row rms <= " \
+                 f"{FLASH_ROW_TOL / 2 ** -8:g} * 2^-8"
+    return ok, float(diff.max()), rel, words
+
+
+def flash_pairs(b, sq, sk, causal, window, kv_len) -> int:
+    """Unmasked (query, key) pairs per query head over the batch."""
+    kvl = np.full(b, sk, np.int64) if kv_len is None else \
+        np.maximum(kv_len.cpu().numpy().astype(np.int64), 0)
+    i = np.arange(sq, dtype=np.int64)
+    total = 0
+    for m in kvl:
+        n = min(m, sk)
+        pos = m - sq + i
+        hi = np.minimum(n, pos + 1) if causal else np.full(sq, n)
+        lo = np.maximum(0, pos - window + 1) if window else 0
+        total += int(np.maximum(hi - lo, 0).sum())
+    return total
+
+
+def flash_bound(q, k, causal, window, kv_len) -> tuple:
+    """(bound ms, what binds): q and o once and each K/V row a query can
+    see once, over the HBM rate; 4 * D flops per unmasked (query, key)
+    pair over the bf16 tensor-core rate; the larger of the two."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pairs = flash_pairs(b, sq, sk, causal, window, kv_len)
+    if kv_len is None:
+        kv_rows = b * sk
+    else:   # decode: the rows below each kv_len
+        kv_rows = int(kv_len.clamp(0, sk).sum())
+    es = q.element_size()
+    nbytes = 2 * q.numel() * es + 2 * kv_rows * hkv * d * es
+    ops = 4 * d * pairs * hq
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_full_runs(seed: int, seq: int, decode_batch: int, dev) -> dict:
+    """The full-size inputs at gemma3-1b's heads, bf16, by label: (q, k,
+    v, window, kv_len) for the prefill of one ``seq``-token prompt (global
+    and window 512) and decode at ``decode_batch`` over a ``seq`` cache
+    with per-row kv_len."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hq, hkv, d = GEMMA["hq"], GEMMA["hkv"], GEMMA["d"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = randn(1, seq, hq, d), randn(1, seq, hkv, d), randn(1, seq, hkv, d)
+    runs = {f"prefill S={seq} window={w}": (q, k, v, w, None)
+            for w in (None, 512)}
+    lens = np.random.default_rng(seed).integers(1, seq + 1, size=decode_batch)
+    runs[f"decode B={decode_batch} Sk={seq} kv_len"] = (
+        randn(decode_batch, 1, hq, d), randn(decode_batch, seq, hkv, d),
+        randn(decode_batch, seq, hkv, d), None,
+        torch.from_numpy(lens.astype(np.int32)).to(dev))
+    return runs
+
+
+def flash_edge_cases(seed: int, dev):
+    """Yield (case, its result, flash_check's verdict) for every case of
+    FLASH_CASES."""
+    rng = np.random.default_rng(seed)
+    for case in FLASH_CASES:
+        _, _, _, _, _, _, causal, window, _, kind = case
+        q, k, v, kv_len = flash_case(rng, case, dev)
+        got = faops.mha(q, k, v, causal=causal, window=window, kv_len=kv_len)
+        yield case, got, flash_check(got, q, k, v, causal, window, kv_len,
+                                     kind)
+
+
+def phase_flash(seed: int, seq: int, decode_batch: int, reps: int,
+                device: str = "cuda") -> dict:
+    import torch.nn.functional as F
+    dev = torch.device(device)
+    for case, got, (ok, err, rel, tol) in flash_edge_cases(seed, dev):
+        b, sq, sk, hq, hkv, d, causal, window, dt, kind = case
+        if got.dtype != dt or tuple(got.shape) != (b, sq, hq, d):
+            raise PhaseError(f"flash_attention {case}: got {got.dtype} "
+                             f"{tuple(got.shape)}")
+        if not ok:
+            raise PhaseError(f"flash_attention {case}: max |err| {err} "
+                             f"exceeds {tol}")
+        print(f"flash_attention == plain at B={b} Sq={sq} Sk={sk} Hq={hq} "
+              f"Hkv={hkv} D={d} causal={causal} window={window} {dt} "
+              f"({kind}): max |err| {err:.3g} ({tol})", flush=True)
+
+    hq, hkv, d = GEMMA["hq"], GEMMA["hkv"], GEMMA["d"]
+    runs = flash_full_runs(seed, seq, decode_batch, dev)
+    out = {}
+    for label, (q, k, v, window, kv_len) in runs.items():
+        got = faops.mha(q, k, v, causal=True, window=window, kv_len=kv_len)
+        ok, err, rel, tol = flash_check(got, q, k, v, True, window, kv_len,
+                                        "plain")
+        if not ok:
+            raise PhaseError(f"flash_attention {label}: max |err| {err} "
+                             f"exceeds {tol}")
+        del got
+        torch.cuda.empty_cache()
+        k_ms = time_ms(lambda: faops.mha(q, k, v, causal=True, window=window,
+                                         kv_len=kv_len), reps, warmup=1)
+        p_ms = time_ms(lambda: flash_plain(q, k, v, True, window, kv_len),
+                       max(1, reps // 2), warmup=1)
+        # the library yardstick: global causal (no window, no kv_len)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        causal_lib = q.shape[1] > 1
+        l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal_lib, enable_gqa=True), reps,
+            warmup=1)
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = flash_bound(q, k, True, window, kv_len)
+        print(f"kernel flash_attention {label} Hq={hq} Hkv={hkv} D={d} bf16: "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa (global causal) "
+              f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); max "
+              f"|err| {err:.3g} ({tol})", flush=True)
+        out[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": err}
+    del q, k, v, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 2d: embedding_bag against its plain version
+# ---------------------------------------------------------------------------
+
+# (V, D, B, L, weighted, mode, dtype, kind): the reference tests' cases
+# (tests/test_kernels.py) at their tolerances, an all-pad bag, mean mode
+# with weights in bf16, SASRec's one-index bags (D = 50, exact) and a
+# wide row with more than 32 indices per bag
+BAG_CASES = [
+    (50, 128, 4, 6, False, "sum", torch.float32, "ref"),
+    (200, 128, 8, 10, True, "sum", torch.float32, "ref"),
+    (100, 256, 3, 5, True, "mean", torch.float32, "ref"),
+    (64, 128, 16, 4, False, "mean", torch.float32, "ref"),
+    (32, 128, 5, 7, True, "sum", torch.bfloat16, "ref"),
+    (10, 128, 2, 3, False, "sum", torch.float32, "all_pad"),
+    (1000, 50, 33, 50, True, "mean", torch.bfloat16, "ref"),
+    (5000, 50, 100, 1, False, "sum", torch.float32, "one"),
+    (300, 300, 7, 40, True, "sum", torch.float32, "ref"),
+]
+BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}     # rtol = atol
+
+
+def bag_case(rng, v, d, b, l, weighted, kind, dt, dev):
+    """Seeded normal table (V, D) in ``dt``, int32 idx (B, L) with 20 %
+    pads (-1; all pads for "all_pad", none for "one") and positive
+    weights (B, L) or None."""
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32))
+    idx = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    if kind == "all_pad":
+        idx[:] = -1
+    elif kind != "one":
+        idx[rng.random((b, l)) < 0.2] = -1
+    # positive weights keep mean mode's sum of weights away from 0
+    w = torch.from_numpy(np.abs(rng.normal(size=(b, l))).astype(np.float32)
+                         + 0.1).to(dev) if weighted else None
+    return table.to(dev, dt), torch.from_numpy(idx).to(dev), w
+
+
+def bag_check(got, table, idx, w, mode, kind) -> tuple:
+    """(passes, max |err|, the tolerance in words) of one kernel result,
+    against the plain version in fp32 on the same (rounded) inputs."""
+    if kind == "all_pad":
+        err = float(got.float().abs().max())
+        return err == 0.0, err, "exactly 0"
+    wt = None if w is None else w.to(table.dtype).float()
+    want = ebops.embedding_bag(table.float(), idx, wt, mode=mode,
+                               use_ref=True)
+    diff = (got.float() - want).abs()
+    if kind == "one":    # one index, weight 1: the row itself, bit for bit
+        return bool(torch.equal(got, table[idx[:, 0].long()])), \
+            float(diff.max()), "bit for bit"
+    tol = BAG_TOL[table.dtype]
+    return bool((diff <= tol + tol * want.abs()).all()), float(diff.max()), \
+        f"rtol = atol = {tol}"
+
+
+def bag_bound(table, idx, w) -> float:
+    """Bound ms (bytes): idx (and weights) once, each distinct row read
+    once (row 0 for pads), the output once, over the HBM rate."""
+    rows = int(torch.unique(idx.clamp(min=0)).numel())
+    es = table.element_size()
+    nbytes = idx.numel() * 4 + (0 if w is None else w.numel() * es) \
+        + rows * table.shape[1] * es + idx.shape[0] * table.shape[1] * es
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_bag(seed: int, reps: int, device: str = "cuda",
+              cfg=None) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.models.sasrec import table_rows
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    max_err = 0.0
+    for v, d, b, l, weighted, mode, dt, kind in BAG_CASES:
+        table, idx, w = bag_case(rng, v, d, b, l, weighted, kind, dt, dev)
+        got = ebops.embedding_bag(table, idx, w, mode=mode)
+        sync(dev)
+        if got.dtype != dt or tuple(got.shape) != (b, d):
+            raise PhaseError(f"embedding_bag V={v} D={d}: got {got.dtype} "
+                             f"{tuple(got.shape)}")
+        ok, err, tol = bag_check(got, table, idx, w, mode, kind)
+        if not ok:
+            raise PhaseError(f"embedding_bag V={v} D={d} B={b} L={l} {mode} "
+                             f"{dt} ({kind}): max |err| {err} exceeds {tol}")
+        if dt == torch.float32:
+            max_err = max(max_err, err)
+        print(f"embedding_bag == plain at V={v} D={d} B={b} L={l} "
+              f"weighted={weighted} {mode} {dt} ({kind}): max |err| "
+              f"{err:.3g} ({tol})", flush=True)
+
+    # full size: sasrec's table (configs/sasrec.py), fp32, and its
+    # train_batch bags (65,536 histories of seq_len items)
+    cfg = cfg or get_arch("sasrec").config
+    n_rows, d = table_rows(cfg), cfg.d_embed
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((n_rows, d), generator=gen, device=dev) * 0.02
+    big = torch.randint(1, cfg.n_items + 1, (65_536, cfg.seq_len),
+                        generator=gen, device=dev, dtype=torch.int32)
+    big[torch.rand(big.shape, generator=gen, device=dev) < 0.2] = -1
+    # phase 5's lookups: one-index bags of a 512-user batch's histories
+    # and of retrieval_cand's 1,000,000 candidates
+    one = torch.randint(1, cfg.n_items + 1, (512 * cfg.seq_len, 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    cands = torch.randint(1, cfg.n_items + 1, (1_000_000, 1),
+                          generator=gen, device=dev, dtype=torch.int32)
+    out = {}
+    for label, idx, mode in (("train_batch sum", big, "sum"),
+                             ("train_batch mean", big, "mean"),
+                             ("encode 512x50 one-index", one, "sum"),
+                             ("retrieval 1M one-index", cands, "sum")):
+        got = ebops.embedding_bag(table, idx, mode=mode)
+        ok, err, tol = bag_check(got, table, idx, None, mode,
+                                 "ref" if idx is big else "one")
+        if not ok:
+            raise PhaseError(f"embedding_bag {label}: max |err| {err} "
+                             f"exceeds {tol}")
+        max_err = max(max_err, err)
+        k_ms = time_ms(lambda: ebops.embedding_bag(table, idx, mode=mode),
+                       reps)
+        p_ms = time_ms(lambda: ebops.embedding_bag(table, idx, mode=mode,
+                                                   use_ref=True),
+                       max(3, reps // 4))
+        # the library yardstick: F.embedding_bag, pads as row 0 weight 0
+        lib_idx = idx.clamp(min=0).long()
+        lib_w = (idx >= 0).float()
+        l_ms = time_ms(lambda: F.embedding_bag(
+            lib_idx, table, mode="sum", per_sample_weights=lib_w), reps)
+        bound_ms = bag_bound(table, idx, None)
+        print(f"kernel embedding_bag {label} V={n_rows} D={d} B="
+              f"{idx.shape[0]} L={idx.shape[1]} fp32: {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, F.embedding_bag {l_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes); max |err| {err:.3g} ({tol})",
+              flush=True)
+        out[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+    del table, big, one, cands
+    torch.cuda.empty_cache()
+    return {"runs": out, "max_abs_err": max_err}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3b: GNN training over the live snapshot
 # ---------------------------------------------------------------------------
 
@@ -491,7 +906,6 @@ def phase_gnn(w, seed: int, steps: int, device: str = "cuda") -> dict:
     ``device`` (the card) and, in lockstep, on the CPU in this process, on
     the same batches.  ``device="cpu"`` rehearses the phase without a
     card."""
-    from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DynamicGraphPipeline, \
         batch_to_torch
     from repro_torch.models import gnn, mp
@@ -925,6 +1339,184 @@ def deployment(label: str, seed: int, n_users: int, plane: bool,
 
 
 # ---------------------------------------------------------------------------
+# Phase 4: LM serving (gemma3-1b at its published width and depth)
+# ---------------------------------------------------------------------------
+
+LM_LOGIT_TOL = 5e-2    # per step, max |logit diff| / max |logit| between the
+#                        kernel path and its plain twin, both in bf16 over
+#                        26 layers: the two round p (unnormalised vs
+#                        normalised) and sum in different orders, each
+#                        layer adding bf16 noise of ~2^-8 of an attention
+#                        output.  Measured on an H100 (700 W) by
+#                        scripts/flash_mutants.py: the kernel reads 0.018;
+#                        broken copies of it read 0.66 (a 64-key tile
+#                        skipped), 0.16 (the causal mask dropping the own
+#                        key) and 0.15 (seeing one future key)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def phase_lm(seed: int, batch: int, prompt: int, steps: int,
+             device: str = "cuda", cfg=None) -> dict:
+    """gemma3-1b (or ``cfg``) behind ``LMServer``: one batch of prompts,
+    then greedy decode steps; the plain twin (``set_use_kernel(False)``,
+    same weights) runs in lockstep on the kernel path's tokens.
+    ``device="cpu"`` with a reduced ``cfg`` rehearses the phase."""
+    from repro_torch.models import transformer
+    from repro_torch.runtime import LMServer
+    cfg = cfg or get_arch("gemma3-1b").config
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=seed, device=device)
+    sync(device)
+    print(f"lm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv}x{cfg.d_head} d_ff={cfg.d_ff} vocab "
+          f"{cfg.vocab} windows {cfg.window_pattern} {cfg.dtype}: "
+          f"{_tree_bytes(params) / 1e9:.3f} GB of weights made on {device} "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                   (batch, prompt))
+    max_len = prompt + steps
+    kern = LMServer(params, cfg, batch, max_len, device=device)
+    plain = LMServer(params, cfg, batch, max_len, device=device)
+
+    def plain_call(fn, *a):
+        transformer.set_use_kernel(False)
+        try:
+            return fn(*a)
+        finally:
+            transformer.set_use_kernel(True)
+
+    def compare(lk, lp) -> tuple:
+        top = float(lp.float().abs().max())
+        err = float((lk.float() - lp.float()).abs().max()) / top
+        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        return err, agree
+
+    fak.reset_launches()
+    t0 = time.perf_counter()
+    lk = kern.prefill(prompts)
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp = plain_call(plain.prefill, prompts)
+    sync(device)
+    plain_prefill_s = time.perf_counter() - t0
+    errs, agrees = [], []
+    err, agree = compare(lk, lp)
+    errs.append(err)
+    agrees.append(agree)
+    tok = lk.argmax(-1)
+    step_s, plain_step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lk = kern.step(tok)
+        sync(device)
+        step_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        lp = plain_call(plain.step, tok)
+        sync(device)
+        plain_step_s.append(time.perf_counter() - t0)
+        err, agree = compare(lk, lp)
+        errs.append(err)
+        agrees.append(agree)
+        tok = lk.argmax(-1)
+    launches = fak.launches["flash_attention"]
+    print(f"lm: batch {batch} prompt {prompt} + {steps} greedy steps "
+          f"(max_len {max_len}); prefill {prefill_s * 1e3:.2f} ms (plain twin "
+          f"{plain_prefill_s * 1e3:.2f} ms), decode step median "
+          f"{statistics.median(step_s) * 1e3:.2f} ms (plain twin "
+          f"{statistics.median(plain_step_s) * 1e3:.2f} ms), first "
+          f"{step_s[0] * 1e3:.2f} ms; host wall clock to a synchronise",
+          flush=True)
+    print(f"lm: kernel path vs plain twin in lockstep: max |logit diff| / "
+          f"max |logit| per call: prefill {errs[0]:.3g}, decode worst "
+          f"{max(errs[1:]):.3g} (tolerance {LM_LOGIT_TOL}); greedy tokens "
+          f"agree {statistics.mean(agrees):.4f} (worst call "
+          f"{min(agrees):.4f}; reported, not required: bf16 near-ties over "
+          f"{cfg.vocab} logits); flash_attention launches {launches}",
+          flush=True)
+    if not all(np.isfinite(errs)) or max(errs) > LM_LOGIT_TOL:
+        raise PhaseError(f"phase 4: kernel path != plain twin: logit errors "
+                         f"{errs} (tolerance {LM_LOGIT_TOL})")
+    want = cfg.n_layers * (1 + steps)
+    if device == "cuda" and launches != want:
+        raise PhaseError(f"phase 4: {launches} flash_attention launches, "
+                         f"expected {cfg.n_layers} x (1 + {steps}) = {want}")
+    del kern, plain, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_s * 1e3,
+            "step_ms": statistics.median(step_s) * 1e3, "errors": errs,
+            "agree": agrees}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: SASRec serving (the published config)
+# ---------------------------------------------------------------------------
+
+REC_SCORE_TOL = 1e-6   # max |score diff| / max |score|: the bag of one index
+#                        with weight 1 is the row itself, so the two paths
+#                        should agree bit for bit (0 expected)
+
+
+def phase_rec(seed: int, batch: int, n_cand: int,
+              device: str = "cuda", cfg=None) -> dict:
+    """SASRec (or ``cfg``) behind ``RecServer``: catalog top-10 for
+    ``batch`` users and one user's ``n_cand`` candidate scores, held
+    against the plain path (direct indexing, ``set_use_kernel(False)``)
+    on the same weights.  ``device="cpu"`` with a reduced ``cfg``
+    rehearses the phase."""
+    from repro_torch.models import sasrec
+    from repro_torch.runtime import RecServer
+    cfg = cfg or get_arch("sasrec").config
+    params = sasrec.init_params(cfg, seed=seed, device=device)
+    srv = RecServer(params, cfg, device=device)
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(1, cfg.n_items + 1, (batch, cfg.seq_len))
+    short = rng.random(batch) < 0.2              # short histories, left-padded
+    hist[short, :rng.integers(1, cfg.seq_len)] = 0
+    cands = rng.integers(1, cfg.n_items + 1, (1, n_cand))
+    ebk.reset_launches()
+    t0 = time.perf_counter()
+    top = srv.top_k(hist, k=10)
+    t1 = time.perf_counter()
+    scores = srv.score(hist[:1], cands)
+    t2 = time.perf_counter()
+    launches = ebk.launches["embedding_bag"]
+    sasrec.set_use_kernel(False)
+    try:
+        top_p = srv.top_k(hist, k=10)
+        scores_p = srv.score(hist[:1], cands)
+    finally:
+        sasrec.set_use_kernel(True)
+    err = float(np.abs(scores - scores_p).max() / np.abs(scores_p).max())
+    same_sets = sum(set(a) == set(b) for a, b in zip(top, top_p))
+    print(f"rec: {cfg.name} {cfg.n_items} items d={cfg.d_embed} "
+          f"{cfg.n_blocks} blocks seq {cfg.seq_len}: top_k(k=10) for "
+          f"{batch} users {(t1 - t0) * 1e3:.2f} ms, score of {n_cand} "
+          f"candidates {(t2 - t1) * 1e3:.2f} ms (host wall clock, results "
+          f"copied back); against direct indexing: candidate scores max "
+          f"|diff| / max |score| {err:.3g} (tolerance {REC_SCORE_TOL}), "
+          f"top-10 sets equal for {same_sets}/{batch} users; embedding_bag "
+          f"launches {launches}", flush=True)
+    if not np.isfinite(scores).all() or err > REC_SCORE_TOL \
+            or same_sets != batch or top.shape != (batch, 10):
+        raise PhaseError(f"phase 5: kernel path != plain path (score error "
+                         f"{err}, {same_sets}/{batch} equal top-10 sets)")
+    if device == "cuda" and not launches:
+        raise PhaseError("phase 5: embedding_bag was never launched")
+    del srv, params
+    return {"launches": launches, "top_k_ms": (t1 - t0) * 1e3,
+            "score_ms": (t2 - t1) * 1e3, "score_err": err}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -945,6 +1537,17 @@ def main(argv=None) -> int:
                     help="edges of the full-size segment_mp case")
     ap.add_argument("--gnn-steps", type=int, default=12,
                     help="AdamW steps of gin-tu on the live snapshot")
+    ap.add_argument("--flash-seq", type=int, default=LM_SEQ,
+                    help="sequence of the full-size flash_attention cases "
+                         "(prefill_32k / decode_32k)")
+    ap.add_argument("--decode-batch", type=int, default=DECODE_BATCH)
+    ap.add_argument("--lm-batch", type=int, default=8)
+    ap.add_argument("--lm-prompt", type=int, default=1024)
+    ap.add_argument("--lm-steps", type=int, default=32)
+    ap.add_argument("--rec-batch", type=int, default=512,
+                    help="users per top_k call (sasrec's serve_p99)")
+    ap.add_argument("--rec-cands", type=int, default=1_000_000,
+                    help="candidates scored (sasrec's retrieval_cand)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -967,6 +1570,11 @@ def main(argv=None) -> int:
     timings = phase_kernels(args.seed, args.kernel_n, args.reps)
     mp_timing = phase_segment_mp(args.seed, (args.mp_n, args.mp_e,
                                              *OGB_PRODUCTS[2:]), args.reps)
+    # the 32k cases take up to a second per call: fewer reps
+    big_reps = max(2, args.reps // 4)
+    flash_timing = phase_flash(args.seed, args.flash_seq, args.decode_batch,
+                               big_reps)
+    bag_timing = phase_bag(args.seed, args.reps)
 
     main_counts, w = deployment("main", args.seed, args.users, plane=True,
                                 n_prog=args.n_prog, n_tx=args.n_tx,
@@ -997,6 +1605,11 @@ def main(argv=None) -> int:
             raise PhaseError(f"{label}: kernels {missing} were never "
                              f"launched on the path: {counts}")
 
+    # the LM slice's path, then the recsys slice's, each with its counts
+    # set to 0 just before it and read just after
+    lm = phase_lm(args.seed, args.lm_batch, args.lm_prompt, args.lm_steps)
+    rec = phase_rec(args.seed, args.rec_batch, args.rec_cands)
+
     rows = []
     for name in ("before", "visibility", "before_pairs"):
         t, replaces = timings[(name, 3)], KERNELS[name]
@@ -1010,6 +1623,17 @@ def main(argv=None) -> int:
                  "source": "src/repro_torch/csrc/segment_mp.cu",
                  "replaces": KERNELS["segment_mp"],
                  "launches": gnn_counts["segment_mp"], **mp_timing})
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": KERNELS["flash_attention"],
+                 "launches": lm["launches"],
+                 **flash_timing[f"prefill S={args.flash_seq} window=None"]})
+    rows.append({"name": "embedding_bag", "route": "cuda",
+                 "source": "src/repro_torch/csrc/embedding_bag.cu",
+                 "replaces": KERNELS["embedding_bag"],
+                 "launches": rec["launches"],
+                 "max_abs_err": bag_timing["max_abs_err"],
+                 **bag_timing["runs"]["train_batch sum"]})
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

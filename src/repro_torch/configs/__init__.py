@@ -1,8 +1,9 @@
 """Architecture registry: ``get_arch(<id>)`` resolution.
 
-Holds the four GNN architectures (gin-tu, pna, gat-cora, dimenet), each
-with its shape set, and the paper system's own deployment config.  The
-LM and recsys architectures join with their slices.
+Holds the dense LM architectures (phi4-mini, gemma3-1b, chatglm3-6b),
+the four GNN architectures (gin-tu, pna, gat-cora, dimenet) and sasrec,
+each with its shape set, and the paper system's own deployment config.
+The MoE LMs (moonshot, qwen3-moe) join with ``models/moe.py``.
 """
 
 from __future__ import annotations
@@ -11,10 +12,12 @@ from typing import Dict, List
 
 from .base import ArchSpec, ShapeSpec
 
-from . import dimenet, gat_cora, gin_tu, pna
+from . import (chatglm3_6b, dimenet, gat_cora, gemma3_1b, gin_tu,
+               phi4_mini_3p8b, pna, sasrec)
 from .weaver_store import PAPER_DEPLOYMENT
 
-_MODULES = [gin_tu, pna, dimenet, gat_cora]
+_MODULES = [phi4_mini_3p8b, gemma3_1b, chatglm3_6b, gin_tu, pna, dimenet,
+            gat_cora, sasrec]
 
 ARCHS: Dict[str, ArchSpec] = {m.SPEC.arch_id: m.SPEC for m in _MODULES}
 

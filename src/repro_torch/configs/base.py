@@ -1,22 +1,23 @@
-"""Config schema: architectures x input shapes.
-
-The registry of the port holds the GNN architectures; the LM and recsys
-config types come with their slices.
-"""
+"""Config schema: architectures x input shapes."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 from repro_torch.models.gnn import GNNConfig
+from repro_torch.models.sasrec import SASRecConfig
+from repro_torch.models.transformer import LMConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     """One input-shape cell for an architecture.
 
-    kind: gnn_full / gnn_mini / gnn_mol (GNN family).
+    kind:
+      lm_train / lm_prefill / lm_decode         (LM family)
+      gnn_full / gnn_mini / gnn_mol             (GNN family)
+      rec_train / rec_serve / rec_retrieval     (recsys family)
     dims: family-specific sizes.
     skip: non-empty => cell skipped, with the reason recorded.
     """
@@ -30,10 +31,26 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                     # gnn
-    config: GNNConfig
+    family: str                     # lm | gnn | recsys
+    config: Union[LMConfig, GNNConfig, SASRecConfig]
     shapes: Dict[str, ShapeSpec]
     citation: str = ""
+
+
+def lm_shapes(pure_full_attention: bool) -> Dict[str, ShapeSpec]:
+    skip = ("pure full-attention arch: long_500k requires sub-quadratic "
+            "attention (DESIGN.md §Arch-applicability)"
+            if pure_full_attention else "")
+    return {
+        "train_4k": ShapeSpec("train_4k", "lm_train",
+                              {"seq": 4096, "batch": 256}),
+        "prefill_32k": ShapeSpec("prefill_32k", "lm_prefill",
+                                 {"seq": 32768, "batch": 32}),
+        "decode_32k": ShapeSpec("decode_32k", "lm_decode",
+                                {"seq": 32768, "batch": 128}),
+        "long_500k": ShapeSpec("long_500k", "lm_decode",
+                               {"seq": 524288, "batch": 1}, skip=skip),
+    }
 
 
 def gnn_shapes() -> Dict[str, ShapeSpec]:
@@ -58,4 +75,16 @@ def gnn_shapes() -> Dict[str, ShapeSpec]:
         "molecule": ShapeSpec("molecule", "gnn_mol",
                               {"n_nodes": 30, "n_edges": 64, "batch": 128,
                                "d_feat": 16, "n_classes": 2}),
+    }
+
+
+def recsys_shapes() -> Dict[str, ShapeSpec]:
+    return {
+        "train_batch": ShapeSpec("train_batch", "rec_train",
+                                 {"batch": 65536}),
+        "serve_p99": ShapeSpec("serve_p99", "rec_serve", {"batch": 512}),
+        "serve_bulk": ShapeSpec("serve_bulk", "rec_serve",
+                                {"batch": 262144}),
+        "retrieval_cand": ShapeSpec("retrieval_cand", "rec_retrieval",
+                                    {"batch": 1, "n_candidates": 1_000_000}),
     }

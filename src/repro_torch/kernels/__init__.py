@@ -11,4 +11,11 @@ CPU tensors to the plain version), ref.py (plain PyTorch version).
                     (``csrc/segment_mp.cu``) behind the GNN seam
                     ``models.mp.propagate_matmul``, plus the
                     sorted-segment reductions of node programs
+  flash_attention — online-softmax attention with GQA, causal / window
+                    masks and per-row key lengths
+                    (``csrc/flash_attention.cu``) behind ``ops.mha``:
+                    the LM's prefill and decode attention
+  embedding_bag   — weighted row sums with -1 pads
+                    (``csrc/embedding_bag.cu``) behind
+                    ``ops.embedding_bag``: SASRec's item lookups
 """

@@ -1,6 +1,7 @@
-"""Model zoo of the port: GNNs over the message-passing seam (the LM and
-recsys models come with later slices)."""
+"""Model zoo of the port: GNNs over the message-passing seam, the dense
+LMs (``transformer`` over ``layers``, attention on the flash_attention
+kernel) and SASRec (item lookups on the embedding_bag kernel)."""
 
-from . import gnn, mp
+from . import gnn, layers, mp, sasrec, transformer
 
-__all__ = ["gnn", "mp"]
+__all__ = ["gnn", "layers", "mp", "sasrec", "transformer"]

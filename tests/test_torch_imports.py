@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module loads
 neither ``jax`` nor anything of the reference package ``repro``, and the
-default device is the card, with no silent fall back to the CPU."""
+default device is the card, with no silent fall back to the CPU (the
+Weaver, the LM and SASRec servers, model initialisation)."""
 
 import os
 import subprocess
@@ -35,6 +36,27 @@ PROBE = textwrap.dedent("""
             print("NO_CUDA_RAISES", False)
     Weaver(WeaverConfig(device="cpu"))
     print("CPU_OK")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import sasrec, transformer
+    from repro_torch.runtime import LMServer, RecServer
+    lm = reduced_config(get_arch("gemma3-1b"))
+    rec = reduced_config(get_arch("sasrec"))
+    servers = {
+        "LMServer": lambda: LMServer(transformer.init_params(
+            lm, device="cpu"), lm, batch=2, max_len=8),
+        "RecServer": lambda: RecServer(sasrec.init_params(
+            rec, device="cpu"), rec),
+        "init_params": lambda: transformer.init_params(lm),
+    }
+    if not torch.cuda.is_available():
+        for name, make in servers.items():
+            try:
+                make()
+            except RuntimeError as e:
+                print("NO_CUDA_RAISES", name, 'device="cpu"' in str(e))
+            else:
+                print("NO_CUDA_RAISES", name, False)
 """)
 
 
@@ -45,7 +67,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     n_modules = int(out.split("MODULES ")[1].split()[0])
-    assert n_modules >= 48, out
+    assert n_modules >= 62, out
     assert "LEAKED []" in out, out
-    assert "NO_CUDA_RAISES False" not in out, out
+    assert "False" not in out.split("LEAKED")[1], out
+    assert out.count("NO_CUDA_RAISES") in (0, 4), out
     assert "CPU_OK" in out, out

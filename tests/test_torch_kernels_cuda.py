@@ -16,6 +16,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mv_visibility import kernel, ref
 from repro_torch.kernels.segment_mp import kernel as smp_kernel
 from repro_torch.kernels.segment_mp import ops as smp_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+from repro_torch.kernels.embedding_bag import ops as eb_ops
 
 NO_STAMP = ref.NO_STAMP
 
@@ -61,7 +64,8 @@ def test_cuda_kernels_match_plain():
 
 
 def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch, tmp_path):
-    assert build.sources() == ["mv_visibility", "segment_mp"]
+    assert build.sources() == ["embedding_bag", "flash_attention",
+                               "mv_visibility", "segment_mp"]
     path = build.library_path("mv_visibility")
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path("mv_visibility")       # stable key
@@ -115,3 +119,71 @@ def test_segment_mp_wrapper_refuses_cpu_and_grad():
     with pytest.raises(ValueError, match="no backward"):
         smp_kernel.segment_mp(x, w.requires_grad_(), src, indptr)
     assert smp_kernel.launches["segment_mp"] == before
+
+
+def test_flash_attention_kernel_matches_plain():
+    """Card only: the flash_attention kernel == its plain version (fp32)
+    on the device at chip_smoke's cases and tolerances: the reference
+    tests' cases, Sq > Sk causal (rows with no valid key), ragged Sq and
+    Sk, n_rep 1, 4 and 8, D up to 256, per-row kv_len over a strided
+    cache (windows past a full cache among them), and constant v; each
+    call is one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    cs = smoke()
+    dev = torch.device("cuda")
+    fa_kernel.reset_launches()
+    for case, got, (ok, err, _, tol) in cs.flash_edge_cases(0, dev):
+        b, sq, sk, hq, hkv, d, causal, window, dt, kind = case
+        assert got.dtype == dt and got.shape == (b, sq, hq, d)
+        assert ok, f"{case}: max |err| {err}; {tol}"
+    torch.cuda.synchronize()
+    assert fa_kernel.launches["flash_attention"] == len(cs.FLASH_CASES)
+    fa_kernel.reset_launches()
+
+
+def test_embedding_bag_kernel_matches_plain():
+    """Card only: the embedding_bag kernel == its plain version at
+    chip_smoke's cases and tolerances (the reference tests' cases, an
+    all-pad bag, mean mode with weights in bf16, one-index bags bit for
+    bit, more than 32 indices per bag); each call is one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    cs = smoke()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    eb_kernel.reset_launches()
+    for v, d, b, l, weighted, mode, dt, kind in cs.BAG_CASES:
+        table, idx, w = cs.bag_case(rng, v, d, b, l, weighted, kind, dt, dev)
+        got = eb_ops.embedding_bag(table, idx, w, mode=mode)
+        assert got.dtype == dt and got.shape == (b, d)
+        ok, err, tol = cs.bag_check(got, table, idx, w, mode, kind)
+        assert ok, f"V={v} D={d} B={b} L={l} {mode} {dt}: {err}; {tol}"
+    torch.cuda.synchronize()
+    assert eb_kernel.launches["embedding_bag"] == len(cs.BAG_CASES)
+    eb_kernel.reset_launches()
+
+
+def test_attention_and_bag_wrappers_refuse_cpu_and_grad():
+    """The kernel wrappers launch on CUDA tensors or raise: they refuse
+    CPU tensors and inputs that require grad (no backward), and the bag
+    refuses an index past the table."""
+    q = torch.zeros((1, 4, 2, 8))
+    k = torch.zeros((1, 4, 1, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa_kernel.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="no backward"):
+        fa_kernel.flash_attention(q.requires_grad_(), k, k)
+    table = torch.zeros((5, 3))
+    idx = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eb_kernel.embedding_bag(table, idx)
+    with pytest.raises(ValueError, match="no backward"):
+        eb_kernel.embedding_bag(table.requires_grad_(), idx)
+    assert fa_kernel.launches["flash_attention"] == 0
+    assert eb_kernel.launches["embedding_bag"] == 0
+    if torch.cuda.is_available():
+        with pytest.raises(IndexError, match="out of range"):
+            eb_kernel.embedding_bag(torch.zeros((5, 3), device="cuda"),
+                                    torch.full((2, 2), 5, dtype=torch.int32,
+                                               device="cuda"))
