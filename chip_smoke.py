@@ -34,14 +34,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    agree at every step.  Then a smaller deployment without the column
    plane repeats phase 3, and its final snapshot is also held against
    the per-object Python snapshot oracle.
-2c. ``flash_attention`` against its plain version in fp32 on the card:
-   the reference tests' cases, causal Sq > Sk (rows with no valid key),
-   ragged Sq and Sk, n_rep 1, 4 and 8, D up to 256, per-row kv_len over
-   a strided cache (windows wholly past a full cache among them),
-   constant v, phase 4's shapes; then gemma3-1b's heads (4 query heads,
-   1 KV head, D = 256, bf16) at the LM shapes' 32k: prefill of one
-   prompt (global and window 512) and decode at batch 128 with per-row
-   kv_len, timed beside the plain version and
+2c. ``flash_attention`` against its plain version in fp32 on the card,
+   each of its three variants (bf16 ``wgmma`` prefill, split-KV decode,
+   fp32 CUDA-core prefill) at every kind of case: the reference tests'
+   cases, causal Sq > Sk (rows with no valid key), ragged Sq and Sk,
+   n_rep 1 to 16, D up to 256, per-row kv_len over a strided cache
+   (windows wholly past a full cache among them), constant v, phase 4's
+   shapes; then gemma3-1b's heads (4 query heads, 1 KV head, D = 256,
+   bf16) at the LM shapes' 32k: prefill of one prompt (global and window
+   512, the prefill variant) and decode at batch 128 with per-row kv_len
+   (the decode variant), timed beside the plain version and
    ``scaled_dot_product_attention``.  bf16 results are held to each
    output row's own scale (``FLASH_ROW_TOL``); ``scripts/flash_mutants.py``
    shows that broken copies of the kernel fail these checks and
@@ -57,7 +59,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1,024-token prompts, then 32 greedy decode steps; the same weights on
    the plain twin (``set_use_kernel(False)``) in lockstep on the kernel
    path's tokens; logits must agree at every step and flash_attention
-   must launch 26 x (1 + 32) times.
+   must launch 26 x (1 + 32) times: 26 prefill launches of its prefill
+   variant and 26 x 32 of its decode variant.  A second, untimed pass
+   over the same prompts and tokens holds each of those attention calls
+   to its plain version, as phase 2c does.
 5. SASRec serving at its published config behind ``RecServer``: top-10
    over the 1M-item catalog for 512 users and 1,000,000 candidate scores
    for one user, held against direct indexing; embedding_bag must launch.
@@ -114,6 +119,7 @@ KERNELS = {           # name -> what it replaces
     "before_pairs": "src/repro/core/writepath.py:144",
     "segment_mp": "src/repro/kernels/segment_mp/kernel.py:82",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
+    "flash_decode": "src/repro/kernels/flash_attention/kernel.py:99",
     "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:61",
 }
 # GC every simulated second and a WAL checkpoint every 4096 records
@@ -492,6 +498,27 @@ FLASH_CASES = [
     # first rows still see keys
     (1, 20, 256, 1, 1, 64, True, 16, torch.float32, "kv_past"),
     (2, 40, 256, 4, 1, 128, True, 32, torch.bfloat16, "kv_past"),
+    # so that every variant (kernel.select_variant) meets every kind: the
+    # bf16 tensor-core prefill without the causal mask, at n_rep 3 (128
+    # rows per tile do not split into whole positions) and at D = 80
+    # (zero-filled to 128)
+    (2, 70, 50, 2, 2, 64, False, 30, torch.bfloat16, "plain"),
+    (2, 100, 160, 6, 2, 128, True, None, torch.bfloat16, "plain"),
+    (1, 64, 96, 4, 2, 80, True, None, torch.bfloat16, "plain"),
+    # the split decode: a window past a full cache in bf16, Sq > Sk
+    # causal, a window without the causal mask, constant v over 1,000
+    # keys, chatglm3's 16 rows, fp32 at D = 256 (kv_len 0 with 3 splits
+    # is the first kv_len case above)
+    (2, 4, 256, 4, 1, 128, True, 2, torch.bfloat16, "kv_past"),
+    (2, 4, 3, 4, 1, 64, True, None, torch.float32, "plain"),
+    (3, 2, 700, 2, 1, 64, False, 100, torch.bfloat16, "plain"),
+    (1, 1, 1000, 8, 1, 32, False, None, torch.float32, "const_v"),
+    (2, 1, 600, 16, 1, 128, True, None, torch.bfloat16, "kv_len"),
+    (2, 1, 300, 4, 1, 256, True, None, torch.float32, "kv_len"),
+    # the CUDA-core variant over a padded cache, and in bf16 at a D that
+    # is no multiple of 16
+    (3, 6, 200, 4, 1, 64, True, 40, torch.float32, "kv_len"),
+    (2, 33, 65, 3, 1, 40, True, None, torch.bfloat16, "plain"),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # rtol = atol, as
 #              tests/test_kernels.py; against the plain version in fp32
@@ -648,6 +675,12 @@ def phase_flash(seed: int, seq: int, decode_batch: int, reps: int,
     runs = flash_full_runs(seed, seq, decode_batch, dev)
     out = {}
     for label, (q, k, v, window, kv_len) in runs.items():
+        variant = fak.select_variant(q.dtype, q.shape, k.shape,
+                                     fak._vec_ok((q, k, v), q.shape[-1]))
+        want = "decode" if kv_len is not None else "tc"
+        if variant != want:
+            raise PhaseError(f"flash_attention {label}: variant {variant}, "
+                             f"expected {want}")
         got = faops.mha(q, k, v, causal=True, window=window, kv_len=kv_len)
         ok, err, rel, tol = flash_check(got, q, k, v, True, window, kv_len,
                                         "plain")
@@ -669,7 +702,8 @@ def phase_flash(seed: int, seq: int, decode_batch: int, reps: int,
         del qt, kt, vt
         torch.cuda.empty_cache()
         bound_ms, bound_by = flash_bound(q, k, True, window, kv_len)
-        print(f"kernel flash_attention {label} Hq={hq} Hkv={hkv} D={d} bf16: "
+        print(f"kernel flash_attention ({variant}) {label} Hq={hq} Hkv={hkv} "
+              f"D={d} bf16: "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa (global causal) "
               f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); max "
               f"|err| {err:.3g} ({tol})", flush=True)
@@ -1398,6 +1432,18 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
         agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
         return err, agree
 
+    # the first prefill of each path also pays one-time set-up (GEMM
+    # heuristics, lazy module loads): timed and reported, then both are
+    # timed again warm; prefill starts a fresh cache, so this changes
+    # nothing downstream
+    t0 = time.perf_counter()
+    kern.prefill(prompts)
+    sync(device)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_call(plain.prefill, prompts)
+    sync(device)
+    plain_cold_s = time.perf_counter() - t0
     fak.reset_launches()
     t0 = time.perf_counter()
     lk = kern.prefill(prompts)
@@ -1412,8 +1458,9 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
     errs.append(err)
     agrees.append(agree)
     tok = lk.argmax(-1)
-    step_s, plain_step_s = [], []
+    step_s, plain_step_s, toks = [], [], []
     for _ in range(steps):
+        toks.append(tok)
         t0 = time.perf_counter()
         lk = kern.step(tok)
         sync(device)
@@ -1427,9 +1474,35 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
         agrees.append(agree)
         tok = lk.argmax(-1)
     launches = fak.launches["flash_attention"]
+    variants = {k: fak.launches[k] for k in ("flash_tc", "flash_decode",
+                                            "flash_simt")}
+    # every attention call of the kernel path, held to its plain version
+    # as phase 2c holds it (flash_check), in a second, untimed pass over
+    # the same prompts and tokens: the logits compare 26 layers of bf16
+    # noise, these one call each
+    att = []
+    mha = faops.mha
+
+    def checked(q, k, v, causal=True, window=None, kv_len=None, **kw):
+        got = mha(q, k, v, causal=causal, window=window, kv_len=kv_len, **kw)
+        ok, _, rel, _ = flash_check(got, q, k, v, causal, window, kv_len,
+                                    "plain")
+        att.append((ok, rel, q.shape[1] > 1))
+        return got
+
+    faops.mha = checked
+    try:
+        kern.prefill(prompts)
+        for t in toks:
+            kern.step(t)
+    finally:
+        faops.mha = mha
+    att_pre = max(r for _, r, pre in att if pre) / 2 ** -8
+    att_dec = max(r for _, r, pre in att if not pre) / 2 ** -8
     print(f"lm: batch {batch} prompt {prompt} + {steps} greedy steps "
           f"(max_len {max_len}); prefill {prefill_s * 1e3:.2f} ms (plain twin "
-          f"{plain_prefill_s * 1e3:.2f} ms), decode step median "
+          f"{plain_prefill_s * 1e3:.2f} ms; first calls {cold_s * 1e3:.2f} / "
+          f"{plain_cold_s * 1e3:.2f} ms), decode step median "
           f"{statistics.median(step_s) * 1e3:.2f} ms (plain twin "
           f"{statistics.median(plain_step_s) * 1e3:.2f} ms), first "
           f"{step_s[0] * 1e3:.2f} ms; host wall clock to a synchronise",
@@ -1439,19 +1512,32 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
           f"{max(errs[1:]):.3g} (tolerance {LM_LOGIT_TOL}); greedy tokens "
           f"agree {statistics.mean(agrees):.4f} (worst call "
           f"{min(agrees):.4f}; reported, not required: bf16 near-ties over "
-          f"{cfg.vocab} logits); flash_attention launches {launches}",
-          flush=True)
+          f"{cfg.vocab} logits); flash_attention launches {launches} "
+          f"{variants}; each of the {len(att)} attention calls against its "
+          f"plain version: worst {att_pre:.3g} (prefill) / {att_dec:.3g} "
+          f"(decode) * 2^-8 of |want| + row rms", flush=True)
     if not all(np.isfinite(errs)) or max(errs) > LM_LOGIT_TOL:
         raise PhaseError(f"phase 4: kernel path != plain twin: logit errors "
                          f"{errs} (tolerance {LM_LOGIT_TOL})")
-    want = cfg.n_layers * (1 + steps)
-    if device == "cuda" and launches != want:
-        raise PhaseError(f"phase 4: {launches} flash_attention launches, "
-                         f"expected {cfg.n_layers} x (1 + {steps}) = {want}")
+    if not all(ok for ok, _, _ in att):
+        raise PhaseError(f"phase 4: {sum(not ok for ok, _, _ in att)} of "
+                         f"{len(att)} attention calls differ from their plain "
+                         f"version (worst {att_pre:.3g} / {att_dec:.3g} * 2^-8 "
+                         f"of the row scale; {FLASH_TOL} and FLASH_ROW_TOL)")
+    want = {"flash_tc": cfg.n_layers, "flash_decode": cfg.n_layers * steps,
+            "flash_simt": 0}
+    if device == "cuda" and (variants != want
+                             or launches != cfg.n_layers * (1 + steps)):
+        raise PhaseError(f"phase 4: flash_attention launches {launches} "
+                         f"{variants}, expected {cfg.n_layers} x (1 + "
+                         f"{steps}): {want}")
     del kern, plain, params
     if device == "cuda":
         torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_ms": prefill_s * 1e3,
+    return {"launches": launches, "variants": variants,
+            "attention_errors": (att_pre, att_dec),
+            "prefill_ms": prefill_s * 1e3,
+            "plain_prefill_ms": plain_prefill_s * 1e3,
             "step_ms": statistics.median(step_s) * 1e3, "errors": errs,
             "agree": agrees}
 
@@ -1624,10 +1710,16 @@ def main(argv=None) -> int:
                  "replaces": KERNELS["segment_mp"],
                  "launches": gnn_counts["segment_mp"], **mp_timing})
     rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "source": "src/repro_torch/csrc/flash_attention_tc.cu",
                  "replaces": KERNELS["flash_attention"],
-                 "launches": lm["launches"],
+                 "launches": lm["variants"]["flash_tc"],
                  **flash_timing[f"prefill S={args.flash_seq} window=None"]})
+    rows.append({"name": "flash_decode", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_decode.cu",
+                 "replaces": KERNELS["flash_decode"],
+                 "launches": lm["variants"]["flash_decode"],
+                 **flash_timing[f"decode B={args.decode_batch} "
+                                f"Sk={args.flash_seq} kv_len"]})
     rows.append({"name": "embedding_bag", "route": "cuda",
                  "source": "src/repro_torch/csrc/embedding_bag.cu",
                  "replaces": KERNELS["embedding_bag"],

@@ -50,7 +50,10 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -47,7 +47,18 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``kv_len`` (B,) int32: keys at positions >= kv_len[b] are masked and
     the queries of row b end at position kv_len[b] - 1 (decode over a
-    padded cache); without it every row has Sk keys."""
+    padded cache); without it every row has Sk keys.
+
+    CUDA tensors go to one of three kernels by a static rule of dtype,
+    shapes and strides (``kernel.select_variant``), with no fallback
+    between them: the *decode* variant (split over the key axis, fp32 or
+    bf16) when every row start of q, k and v is 16-byte aligned with D
+    filling whole 16-byte slices and Sq * Hq / Hkv <= 16; else the
+    *tc* variant (bf16 ``wgmma`` fed by TMA) for bf16 with those
+    alignments, D a multiple of 16 and Hq / Hkv <= 128; else the *simt*
+    variant (fp32 FMAs on the CUDA cores): fp32 prefill, whose reference
+    tolerance (2e-5) TF32 tensor cores would miss, and rows that TMA
+    cannot read."""
     if use_ref or q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window, kv_len=kv_len)
     if kv_len is not None:

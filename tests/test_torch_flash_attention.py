@@ -240,3 +240,148 @@ def test_chip_smoke_bf16_check_passes_rounding_and_catches_mask_faults(window):
         ok, _, rel, words = chip_smoke.flash_check(got, q, k, v, True, window,
                                                    None, "plain")
         assert not ok, f"{name} passed: {words}"
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+# (bh, sq, sk, d, causal, window, kv_len or None, held to Pallas): every
+# kind of chip_smoke.FLASH_CASES on one head: causal, non-causal, window,
+# Sq < Sk and Sq > Sk causal (rows with no valid key), a window without
+# the causal mask, per-row kv_len with 0 and past a full cache (decode and
+# a short prompt), and kv_past (the last rows' windows past the cache)
+SPLIT_CASES = [
+    (2, 128, 128, 32, True, None, None, True),
+    (2, 128, 128, 32, False, None, None, True),
+    (2, 128, 128, 32, True, 64, None, True),
+    (2, 128, 256, 32, True, None, None, True),
+    (2, 128, 64, 32, True, None, None, True),
+    (2, 64, 128, 32, False, 30, None, True),
+    (3, 1, 96, 32, True, None, (0, 50, 99), False),
+    (3, 4, 96, 32, True, 7, (0, 50, 99), False),
+    (1, 20, 64, 32, True, 16, (84,), False),
+]
+_PALLAS = {}
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, None])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_split_twin_matches_pallas_and_reference(case, chunk):
+    """The decode variant's algorithm (chunked partials, band-skipped
+    chunks left empty, an ordered combine), in fp32 at the reference
+    tolerance (2e-5), against attention_ref and, where the reference
+    kernel takes the case, the Pallas kernel in interpret mode; chunk
+    None is one chunk."""
+    from repro_torch.kernels.flash_attention.ref import attention_split_ref
+    bh, sq, sk, d, causal, window, lens, pallas = SPLIT_CASES[case]
+    rng = np.random.default_rng(case)
+    q, k, v = (rng.normal(size=(bh, s, d)).astype(np.float32)
+               for s in (sq, sk, sk))
+    kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = attention_split_ref(tq, tk, tv, causal=causal, window=window,
+                              kv_len=kv_len, chunk=chunk)
+    want = attention_ref(tq, tk, tv, causal=causal, window=window,
+                         kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    if pallas:
+        if case not in _PALLAS:
+            _PALLAS[case] = _np(flash_attention_pallas(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                causal=causal, window=window, block_q=64, block_k=64))
+        np.testing.assert_allclose(got.numpy(), _PALLAS[case], rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_split_twin_blind_rows_average_v_in_every_split():
+    """kv_len 0 (no valid key) and a window past a full cache: the row
+    group's band is every key, every chunk contributes, the blind rows
+    get the mean of v."""
+    from repro_torch.kernels.flash_attention.ref import attention_split_ref
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, s, 16))
+                                .astype(np.float32)) for s in (4, 40, 40))
+    got = attention_split_ref(q, k, v, causal=True, window=2,
+                              kv_len=torch.tensor([0, 44], dtype=torch.int32),
+                              chunk=8)
+    mean = v.mean(1)
+    np.testing.assert_allclose(got[0].numpy(),
+                               mean[0].expand(4, 16).numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got[1, 1:].numpy(),
+                               mean[1].expand(3, 16).numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+# the variant select_variant gives each chip_smoke.FLASH_CASES entry
+FLASH_VARIANTS = (["simt"] * 5 + ["tc", "simt", "tc", "tc"] + ["simt"] * 3
+                  + ["decode", "tc", "decode", "simt", "simt", "tc", "tc",
+                     "decode", "simt", "tc", "tc", "tc", "tc"]
+                  + ["decode"] * 6 + ["simt", "simt"])
+
+
+def test_variant_rule_on_chip_smoke_cases():
+    """Every FLASH_CASES entry goes to the variant the rule names, and
+    each variant meets every kind of case (plain, kv_len, kv_past,
+    const_v where its dtype allows)."""
+    cs = _chip_smoke()
+    assert len(FLASH_VARIANTS) == len(cs.FLASH_CASES)
+    rng = np.random.default_rng(0)
+    kinds = {}
+    for case, want in zip(cs.FLASH_CASES, FLASH_VARIANTS):
+        q, k, v, _ = cs.flash_case(rng, case, "cpu")
+        aligned = kernel._vec_ok((q, k, v), q.shape[-1])
+        assert kernel.select_variant(q.dtype, q.shape, k.shape,
+                                     aligned) == want, case
+        kinds.setdefault(want, set()).add((case[6], case[7] is not None,
+                                           case[1] > case[2], case[-1]))
+    for variant in ("tc", "decode", "simt"):
+        got = kinds[variant]
+        assert {x[3] for x in got} >= {"plain", "kv_len", "kv_past"}, variant
+        assert any(not x[0] for x in got), f"{variant}: no non-causal case"
+        assert any(x[1] for x in got), f"{variant}: no window"
+        assert any(x[2] and x[0] for x in got), f"{variant}: no Sq > Sk"
+    assert "const_v" in {x[3] for x in kinds["decode"] | kinds["simt"]}
+
+
+def test_variant_rule_on_phase_4_shapes():
+    """gemma3-1b's prefill (bf16, 8 x 1,024) goes to the tensor-core
+    variant and its decode over the cache (8 x 1 over 1,056 slots, read
+    in place) to the split decode; fp32, a misaligned row, D not a
+    multiple of 16 and too many heads per KV head take the CUDA-core
+    variant; the split count follows from the shapes alone."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("gemma3-1b").config
+    hq, hkv, d = cfg.n_heads, cfg.n_kv, cfg.d_head
+    bf = torch.bfloat16
+    q = torch.zeros((8, 1024, hq, d), dtype=bf)
+    kv = torch.zeros((8, 1024, hkv, d), dtype=bf)
+
+    def rule(q, k):
+        return kernel.select_variant(q.dtype, q.shape, k.shape,
+                                     kernel._vec_ok((q, k, k), q.shape[-1]))
+
+    assert rule(q, kv) == "tc"
+    cache = torch.zeros((2, 8, 1056, hkv, d), dtype=bf)[1]
+    assert rule(torch.zeros((8, 1, hq, d), dtype=bf), cache) == "decode"
+    assert rule(q.float(), kv.float()) == "simt"
+    assert rule(torch.zeros((1, 64, 4, 40), dtype=bf),
+                torch.zeros((1, 64, 1, 40), dtype=bf)) == "simt"
+    wide = torch.zeros((1, 64, 2, 260), dtype=bf)[..., 1:257]
+    assert rule(wide, wide) == "simt"                 # rows off 16 bytes
+    assert rule(torch.zeros((1, 64, 129, 64), dtype=bf),
+                torch.zeros((1, 64, 1, 64), dtype=bf)) == "simt"
+    assert rule(torch.zeros((2, 4, 4, 64)), torch.zeros((2, 9, 1, 64))) \
+        == "decode"                                   # fp32 decode
+    assert kernel.decode_splits(8, 1, 1056) == 9
+    assert kernel.decode_splits(128, 1, 32768) == 3
+    assert kernel.decode_splits(4, 2, 300) == 3
+    assert kernel.decode_splits(1, 1, 100) == 1
+    assert kernel.decode_rows_padded(4) == 4
+    assert kernel.decode_rows_padded(16) == 16

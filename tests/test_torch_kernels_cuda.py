@@ -65,6 +65,7 @@ def test_cuda_kernels_match_plain():
 
 def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     assert build.sources() == ["embedding_bag", "flash_attention",
+                               "flash_attention_tc", "flash_decode",
                                "mv_visibility", "segment_mp"]
     path = build.library_path("mv_visibility")
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
@@ -122,12 +123,13 @@ def test_segment_mp_wrapper_refuses_cpu_and_grad():
 
 
 def test_flash_attention_kernel_matches_plain():
-    """Card only: the flash_attention kernel == its plain version (fp32)
-    on the device at chip_smoke's cases and tolerances: the reference
-    tests' cases, Sq > Sk causal (rows with no valid key), ragged Sq and
-    Sk, n_rep 1, 4 and 8, D up to 256, per-row kv_len over a strided
-    cache (windows past a full cache among them), and constant v; each
-    call is one counted launch."""
+    """Card only: the flash_attention kernels == their plain version
+    (fp32) on the device at chip_smoke's cases and tolerances: the
+    reference tests' cases, Sq > Sk causal (rows with no valid key),
+    ragged Sq and Sk, n_rep 1 to 16, D up to 256, per-row kv_len over a
+    strided cache (windows past a full cache among them), and constant v,
+    through each of the three variants; each call is one counted launch
+    of the variant that select_variant names."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     cs = smoke()
@@ -139,6 +141,15 @@ def test_flash_attention_kernel_matches_plain():
         assert ok, f"{case}: max |err| {err}; {tol}"
     torch.cuda.synchronize()
     assert fa_kernel.launches["flash_attention"] == len(cs.FLASH_CASES)
+    rng = np.random.default_rng(0)
+    want = {"flash_tc": 0, "flash_decode": 0, "flash_simt": 0}
+    for case in cs.FLASH_CASES:
+        q, k, v, _ = cs.flash_case(rng, case, dev)
+        want["flash_" + fa_kernel.select_variant(
+            q.dtype, q.shape, k.shape,
+            fa_kernel._vec_ok((q, k, v), q.shape[-1]))] += 1
+    assert {k: fa_kernel.launches[k] for k in want} == want
+    assert all(want.values())
     fa_kernel.reset_launches()
 
 
