@@ -13,10 +13,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    on the card.  At the largest N each kernel is timed with CUDA events.
 2b. ``segment_mp`` (fused message passing) against its plain version in
    fp64 on the card: the reference tests' cases (fp32, bf16, the 17x3
-   ragged case), a hub, gat-cora's D = 1433, and one case at
+   ragged case), hubs spanning several chunks, gat-cora's D = 1433, each
+   gather order (``kernel.select_order``, held to this script's own
+   statement of the rule, ``mp_order``) with F not a multiple of 4,
+   mostly empty rows, bf16 x and the tie D * s = F * 4; both wrappers
+   under ``torch.cuda.set_sync_debug_mode("error")``; then one case at
    ogb-products' shape (N = 2,449,029, E = 61,859,140, D = 100, F = 64,
-   power-law), timed beside its plain version and
-   ``torch.sparse.mm(A, x) @ w``.
+   power-law, transform first), timed beside its plain version and
+   ``torch.sparse.mm(A, x) @ w``, with each pass's device time from
+   ``torch.profiler``.
 3. The system end to end: a port ``Weaver`` on the card with the
    device-resident column plane and group commit loads a seeded social
    graph through ``begin_tx``/``run_tx`` and runs a seeded mix of
@@ -47,13 +52,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``scaled_dot_product_attention``.  bf16 results are held to each
    output row's own scale (``FLASH_ROW_TOL``); ``scripts/flash_mutants.py``
    shows that broken copies of the kernel fail these checks and
-   phase 4's.
+   phase 4's.  Last, the fp32 CUDA-core variant (on no model's path) at
+   gemma3-1b's heads, causal prefill of 8,192 tokens, timed beside its
+   plain version and fp32 ``scaled_dot_product_attention``.
 2d. ``embedding_bag`` against its plain version: the reference tests'
-   cases, an all-pad bag, mean mode with weights in bf16, one-index bags
-   (bit for bit); then sasrec's table (1,000,032 x 50 fp32) at
-   train_batch (65,536 bags of 50, 20 % pads, sum and mean) and at phase
-   5's one-index bags (512 x 50 histories, 1,000,000 candidates), timed
-   beside the plain version and ``F.embedding_bag``.
+   cases, all-pad bags (sum and fused mean: exactly 0), mean mode with
+   weights in bf16, one-index bags (bit for bit), odd D, L not a
+   multiple of the rows in flight, several bags per group, int64
+   indices; both wrappers under ``set_sync_debug_mode("error")``; an
+   index past the table in a subprocess, which must raise a CUDA error
+   at the next ``torch.cuda.synchronize()``; then sasrec's table
+   (1,000,032 x 50 fp32) at train_batch (65,536 bags of 50, 20 % pads,
+   sum and mean) and at phase 5's one-index bags (512 x 50 histories,
+   1,000,000 candidates), timed beside the plain version and
+   ``F.embedding_bag``.  ``scripts/gather_mutants.py`` shows that broken
+   copies of this kernel and of ``segment_mp`` fail phases 2b, 2d or 5.
 4. LM serving: gemma3-1b at its published width and depth (26 layers,
    bf16, random weights from a seed) behind ``LMServer``: batch 8 of
    1,024-token prompts, then 32 greedy decode steps; the same weights on
@@ -270,7 +283,12 @@ def phase_kernels(seed: int, big_n: int, reps: int) -> dict:
 
 # (N, E, D, F, dtype, hub row, tolerance kind): the reference tests' cases
 # (tests/test_kernels.py) at their tolerances, a hub taking half the edges
-# (split into chunks by the kernel) and gat-cora's input width D = 1433
+# (split into chunks by the kernel) and gat-cora's input width D = 1433;
+# then each gather order (mp_order) with the cases it must meet: F not a
+# multiple of 4, a hub spanning several chunks, mostly empty dst rows,
+# bf16 x under each order (at D = 33, 2-byte loads), the tie D * s = F * 4
+# in fp32 (D = F = 64, 16) and bf16 (D 64, F 32), and hubs of more than
+# CHUNK chunks (split a second time) under each order
 MP_CASES = [
     (64, 256, 16, 32, torch.float32, None, "ref"),
     (128, 1000, 64, 64, torch.float32, None, "ref"),
@@ -279,6 +297,14 @@ MP_CASES = [
     (17, 3, 8, 16, torch.float32, None, "ref"),
     (100, 3000, 16, 16, torch.float32, 7, "hub"),
     (2708, 10556, 1433, 8, torch.float32, None, "scale"),
+    (500, 4000, 40, 10, torch.float32, None, "ref"),
+    (100, 3000, 64, 16, torch.float32, 7, "hub"),
+    (1000, 300, 48, 24, torch.float32, None, "ref"),
+    (300, 2500, 100, 8, torch.bfloat16, 11, "ref"),
+    (64, 700, 33, 40, torch.bfloat16, 3, "ref"),
+    (150, 900, 64, 32, torch.bfloat16, None, "ref"),
+    (1000, 200_000, 16, 8, torch.float32, 5, "hub"),
+    (2000, 150_000, 24, 48, torch.bfloat16, 9, "ref"),
 ]
 MP_TOL = 1e-5       # "scale" cases, full size and phase 3b: max |got - y|
 #                     <= MP_TOL * max |y|, against the fp64 truth y; and
@@ -366,34 +392,139 @@ def device_search(dev):
 def mp_bound(n, e, d, f, elem_bytes) -> tuple:
     """(bound ms, what binds): the bytes the function must move (indices
     once, x once, W once, y once) over the HBM rate, and its fp32
-    operations (2*N*D*F for the @ W, E*D for the sums) over the fp32
-    rate, the larger of the two."""
+    operations in the cheaper order (2*N*D*F for the product, E*min(D, F)
+    for the sums) over the fp32 rate, the larger of the two."""
     nbytes = e * 4 + (n + 1) * 4 + (n * d + d * f + n * f) * elem_bytes
-    ops = 2 * n * d * f + e * d
+    ops = 2 * n * d * f + e * min(d, f)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mp_order(d: int, f: int, dt) -> str:
+    """The order segment_mp must take: the one that gathers fewer bytes
+    per edge, fp32 rows of h = x @ W (F * 4 bytes) or rows of x (D * its
+    element size); a tie aggregates."""
+    return "transform" if f * 4 < d * (torch.finfo(dt).bits // 8) \
+        else "aggregate"
+
+
+def mp_launched_order(before: dict) -> str:
+    """The order of the one segment_mp call since ``before`` (a copy of
+    the launch counts), or a description of what else was launched."""
+    new = {k: smpk.launches[k] - before[k] for k in before}
+    if new["segment_mp"] != 1:
+        return f"{new['segment_mp']} launches"
+    return "transform" if new["segment_mp_transform"] == 1 else \
+        "aggregate" if new["segment_mp_aggregate"] == 1 else str(new)
+
+
+def sync_free(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a call
+    that synchronises with the card, or reads from it, raises."""
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        raise PhaseError(f"a kernel wrapper synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def device_split(fn) -> dict:
+    """Device ms per launch of each CUDA kernel ``fn`` launches: the mean
+    over the launches that 5 profiled calls left in the trace
+    (``torch.profiler``).  The trace can lose a short kernel's records,
+    so a trace with none is taken again, up to 3 times; empty when none
+    shows device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+            if us > 0:
+                name = ev.key.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("<")[0].split("(")[0]
+                out[name] = out.get(name, 0.0) + us / 1e3 / ev.count
+        if out:
+            return out
+    return out
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host µs per call of ``fn`` over ``n`` calls without synchronising:
+    the wrapper's own cost, for calls whose kernel is shorter."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def mp_edge_cases(seed: int, dev):
+    """Yield (case, result, mp_check's verdict, the order launched) for
+    every case of MP_CASES."""
+    rng = np.random.default_rng(seed)
+    for case in MP_CASES:
+        n, e, d, f, dt, hub, kind = case
+        x, w, src, dst = mp_case(rng, n, e, d, f, hub, dev)
+        before = dict(smpk.launches)
+        got = smpops.segment_matmul_reduce(x.to(dt), w.to(dt), src, dst, n)
+        sync(dev)
+        yield case, got, mp_check(got, x, w, src, dst, n, kind), \
+            mp_launched_order(before)
 
 
 def phase_segment_mp(seed: int, full: tuple, reps: int) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     max_err = 0.0
-    for n, e, d, f, dt, hub, kind in MP_CASES:
-        x, w, src, dst = mp_case(rng, n, e, d, f, hub, dev)
-        got = smpops.segment_matmul_reduce(x.to(dt), w.to(dt), src, dst, n)
-        torch.cuda.synchronize()
+    for case, got, (ok, err, tol), order in mp_edge_cases(seed, dev):
+        n, e, d, f, dt, hub, kind = case
         if got.dtype != dt or tuple(got.shape) != (n, f):
             raise PhaseError(f"segment_mp {n}x{d}->{f}: got {got.dtype} "
                              f"{tuple(got.shape)}")
-        ok, err, tol = mp_check(got, x, w, src, dst, n, kind)
+        if order != mp_order(d, f, dt):
+            raise PhaseError(f"segment_mp N={n} D={d} F={f} {dt}: launched "
+                             f"{order}, expected {mp_order(d, f, dt)}")
         if not ok:
             raise PhaseError(f"segment_mp N={n} E={e} D={d} F={f} {dt}: "
                              f"max |err| {err} exceeds {tol}")
         if dt == torch.float32:
             max_err = max(max_err, err)
         print(f"segment_mp == plain at N={n} E={e} D={d} F={f} {dt} "
-              f"({kind}): max |err| {err:.3g} ({tol})", flush=True)
+              f"({kind}, {order} first): max |err| {err:.3g} ({tol})",
+              flush=True)
+    # the wrappers read nothing back: no synchronising call in either
+    # order, fp32 or bf16, through ops (sort and CSR on the card) or kernel
+    for d, f in ((48, 24), (16, 64)):
+        x, w, src, dst = mp_case(rng, 300, 5000, d, f, 5, dev)
+        dst_s, order = torch.sort(dst, stable=True)
+        src_s, indptr = src[order], smpops.csr_indptr(dst_s, 300)
+        for dt in (torch.float32, torch.bfloat16):
+            xt, wt = x.to(dt), w.to(dt)
+            sync_free(lambda: smpops.segment_matmul_reduce(xt, wt, src, dst,
+                                                           300))
+            sync_free(lambda: smpk.segment_mp(xt, wt, src_s, indptr))
+    print("segment_mp wrappers (ops and kernel, both orders, fp32 and "
+          "bf16) made no synchronising call", flush=True)
+    # a small call (the last case above, fp32), whose time is the wrapper's
+    print(f"segment_mp at N=300 E=5000 D={d} F={f}: host "
+          f"{host_us(lambda: smpk.segment_mp(x, w, src_s, indptr)):.2f} µs "
+          f"per call", flush=True)
 
     n, e, d, f = full
     t0 = time.perf_counter()
@@ -413,7 +544,21 @@ def phase_segment_mp(seed: int, full: tuple, reps: int) -> dict:
           f"{int(deg.max())}, {n_heavy} rows above {smpk.CHUNK} edges",
           flush=True)
     del deg
+    chunk_ptr = smpk.plan_on_card(indptr)
+    if not (torch.equal(chunk_ptr, smpk.plan(indptr)) and torch.equal(
+            smpk.plan_on_card(chunk_ptr), smpk.plan(chunk_ptr))):
+        raise PhaseError(f"segment_mp at N={n}: the kernel's hub plan != "
+                         f"its plain version")
+    print(f"segment_mp full size: the kernel's hub plan == its plain "
+          f"version at both levels ({int(chunk_ptr[-1])} chunks)",
+          flush=True)
+    del chunk_ptr
+    before = dict(smpk.launches)
     got = smpk.segment_mp(x, w, src, indptr)
+    order = mp_launched_order(before)
+    if order != mp_order(d, f, x.dtype):
+        raise PhaseError(f"segment_mp at N={n} D={d} F={f}: launched "
+                         f"{order}, expected {mp_order(d, f, x.dtype)}")
     rel, err, top = mp_errors(got, x, w, src, dst, n)
     if not (rel <= MP_ROW_TOL and err <= MP_TOL * top):
         raise PhaseError(f"segment_mp at N={n}: max |err| {err} (max |y| "
@@ -434,15 +579,18 @@ def phase_segment_mp(seed: int, full: tuple, reps: int) -> dict:
     del truth
     torch.cuda.empty_cache()
     k_ms = time_ms(lambda: smpk.segment_mp(x, w, src, indptr), reps)
+    split = device_split(lambda: smpk.segment_mp(x, w, src, indptr))
     p_ms = time_ms(lambda: smpref.segment_matmul_reduce_ref(
         x, w, src, dst, n), max(3, reps // 4))
     torch.cuda.empty_cache()
     l_ms = time_ms(lambda: torch.sparse.mm(a_csr, x) @ w, max(3, reps // 4))
     bound_ms, bound_by = mp_bound(n, e, d, f, 4)
-    print(f"kernel segment_mp N={n} E={e} D={d} F={f} fp32: {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, sparse.mm@w {l_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}); gathered x rows "
-          f"{e * d * 4 / k_ms / 1e6:.1f} GB/s", flush=True)
+    gathered = e * (f if order == "transform" else d) * 4
+    print(f"kernel segment_mp N={n} E={e} D={d} F={f} fp32 ({order} "
+          f"first): {k_ms:.4f} ms, plain {p_ms:.4f} ms, sparse.mm@w "
+          f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); gathered "
+          f"rows {gathered / k_ms / 1e6:.1f} GB/s; device ms by kernel "
+          f"(torch.profiler, mean of 5 calls): {split}", flush=True)
     del x, w, src, dst, indptr, a_csr
     torch.cuda.empty_cache()
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
@@ -605,7 +753,8 @@ def flash_pairs(b, sq, sk, causal, window, kv_len) -> int:
 def flash_bound(q, k, causal, window, kv_len) -> tuple:
     """(bound ms, what binds): q and o once and each K/V row a query can
     see once, over the HBM rate; 4 * D flops per unmasked (query, key)
-    pair over the bf16 tensor-core rate; the larger of the two."""
+    pair over the peak for q's type (bf16 tensor cores; fp32 outside
+    them); the larger of the two."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     pairs = flash_pairs(b, sq, sk, causal, window, kv_len)
@@ -616,7 +765,8 @@ def flash_bound(q, k, causal, window, kv_len) -> tuple:
     es = q.element_size()
     nbytes = 2 * q.numel() * es + 2 * kv_rows * hkv * d * es
     ops = 4 * d * pairs * hq
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -643,6 +793,15 @@ def flash_full_runs(seed: int, seq: int, decode_batch: int, dev) -> dict:
     return runs
 
 
+def flash_simt_run(seed: int, seq: int, dev) -> tuple:
+    """The fp32 causal prefill of one ``seq``-token prompt at gemma3-1b's
+    heads: (q, k, v), the shape the fp32 CUDA-core variant serves."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    hq, hkv, d = GEMMA["hq"], GEMMA["hkv"], GEMMA["d"]
+    return tuple(torch.randn((1, seq, h, d), generator=gen, device=dev)
+                 for h in (hq, hkv, hkv))
+
+
 def flash_edge_cases(seed: int, dev):
     """Yield (case, its result, flash_check's verdict) for every case of
     FLASH_CASES."""
@@ -653,6 +812,10 @@ def flash_edge_cases(seed: int, dev):
         got = faops.mha(q, k, v, causal=causal, window=window, kv_len=kv_len)
         yield case, got, flash_check(got, q, k, v, causal, window, kv_len,
                                      kind)
+
+
+SIMT_SEQ = 8192   # the fp32 variant's full-size prefill (the plain
+#                   version's fp32 logits take 0.27 GB per 2,048 rows)
 
 
 def phase_flash(seed: int, seq: int, decode_batch: int, reps: int,
@@ -712,6 +875,37 @@ def phase_flash(seed: int, seq: int, decode_batch: int, reps: int,
                       "max_abs_err": err}
     del q, k, v, runs
     torch.cuda.empty_cache()
+    # the fp32 CUDA-core variant (on no model's path) at full width
+    q, k, v = flash_simt_run(seed, SIMT_SEQ, dev)
+    label = f"prefill S={SIMT_SEQ} fp32"
+    variant = fak.select_variant(q.dtype, q.shape, k.shape,
+                                 fak._vec_ok((q, k, v), q.shape[-1]))
+    if variant != "simt":
+        raise PhaseError(f"flash_attention {label}: variant {variant}, "
+                         f"expected simt")
+    got = faops.mha(q, k, v, causal=True)
+    ok, err, rel, tol = flash_check(got, q, k, v, True, None, None, "plain")
+    if not ok:
+        raise PhaseError(f"flash_attention {label}: max |err| {err} exceeds "
+                         f"{tol}")
+    del got
+    k_ms = time_ms(lambda: faops.mha(q, k, v, causal=True), reps, warmup=1)
+    p_ms = time_ms(lambda: flash_plain(q, k, v, True, None, None),
+                   max(1, reps // 2), warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps, warmup=1)
+    del qt, kt, vt
+    bound_ms, bound_by = flash_bound(q, k, True, None, None)
+    print(f"kernel flash_attention (simt) {label} Hq={hq} Hkv={hkv} D={d}: "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa (enable_gqa, fp32) "
+          f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); max |err| "
+          f"{err:.3g} ({tol})", flush=True)
+    out[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "max_abs_err": err}
+    del q, k, v
+    torch.cuda.empty_cache()
     return out
 
 
@@ -720,9 +914,14 @@ def phase_flash(seed: int, seq: int, decode_batch: int, reps: int,
 # ---------------------------------------------------------------------------
 
 # (V, D, B, L, weighted, mode, dtype, kind): the reference tests' cases
-# (tests/test_kernels.py) at their tolerances, an all-pad bag, mean mode
-# with weights in bf16, SASRec's one-index bags (D = 50, exact) and a
-# wide row with more than 32 indices per bag
+# (tests/test_kernels.py) at their tolerances, an all-pad bag (sum, and
+# mean with bf16 weights), mean mode with weights in bf16, SASRec's
+# one-index bags (D = 50, exact) and a wide row with more than 32 indices
+# per bag; then the kernel's launch shapes: odd D (4-byte fp32 and 2-byte
+# bf16 loads), L not a multiple of its 8 rows in flight, several bags per
+# group (L < 8) with B not a multiple of the bags per warp, 64-byte rows
+# (groups of 4 lanes), 1,200-byte rows (three slices of 32 lanes), and
+# int64 indices (kinds ending in "64")
 BAG_CASES = [
     (50, 128, 4, 6, False, "sum", torch.float32, "ref"),
     (200, 128, 8, 10, True, "sum", torch.float32, "ref"),
@@ -733,20 +932,29 @@ BAG_CASES = [
     (1000, 50, 33, 50, True, "mean", torch.bfloat16, "ref"),
     (5000, 50, 100, 1, False, "sum", torch.float32, "one"),
     (300, 300, 7, 40, True, "sum", torch.float32, "ref"),
+    (300, 33, 10, 13, True, "sum", torch.float32, "ref"),
+    (300, 33, 9, 3, False, "mean", torch.bfloat16, "ref"),
+    (100, 16, 77, 2, True, "sum", torch.float32, "ref"),
+    (700, 300, 6, 70, False, "mean", torch.float32, "ref"),
+    (2000, 64, 37, 20, True, "mean", torch.bfloat16, "ref64"),
+    (5000, 50, 1001, 1, False, "sum", torch.float32, "one64"),
+    (10, 128, 2, 3, True, "mean", torch.bfloat16, "all_pad"),
 ]
 BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}     # rtol = atol
 
 
 def bag_case(rng, v, d, b, l, weighted, kind, dt, dev):
-    """Seeded normal table (V, D) in ``dt``, int32 idx (B, L) with 20 %
-    pads (-1; all pads for "all_pad", none for "one") and positive
-    weights (B, L) or None."""
+    """Seeded normal table (V, D) in ``dt``, int32 idx (B, L) (int64 for
+    a kind ending in "64") with 20 % pads (-1; all pads for "all_pad",
+    none for the one-index kinds) and positive weights (B, L) or None."""
     table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32))
     idx = rng.integers(0, v, size=(b, l)).astype(np.int32)
     if kind == "all_pad":
         idx[:] = -1
-    elif kind != "one":
+    elif not kind.startswith("one"):
         idx[rng.random((b, l)) < 0.2] = -1
+    if kind.endswith("64"):
+        idx = idx.astype(np.int64)
     # positive weights keep mean mode's sum of weights away from 0
     w = torch.from_numpy(np.abs(rng.normal(size=(b, l))).astype(np.float32)
                          + 0.1).to(dev) if weighted else None
@@ -763,7 +971,7 @@ def bag_check(got, table, idx, w, mode, kind) -> tuple:
     want = ebops.embedding_bag(table.float(), idx, wt, mode=mode,
                                use_ref=True)
     diff = (got.float() - want).abs()
-    if kind == "one":    # one index, weight 1: the row itself, bit for bit
+    if kind.startswith("one"):   # one index, weight 1: the row, bit for bit
         return bool(torch.equal(got, table[idx[:, 0].long()])), \
             float(diff.max()), "bit for bit"
     tol = BAG_TOL[table.dtype]
@@ -771,31 +979,98 @@ def bag_check(got, table, idx, w, mode, kind) -> tuple:
         f"rtol = atol = {tol}"
 
 
+def bag_edge_cases(seed: int, dev):
+    """Yield (case, result, bag_check's verdict) for every case of
+    BAG_CASES."""
+    rng = np.random.default_rng(seed)
+    for case in BAG_CASES:
+        v, d, b, l, weighted, mode, dt, kind = case
+        table, idx, w = bag_case(rng, v, d, b, l, weighted, kind, dt, dev)
+        got = ebops.embedding_bag(table, idx, w, mode=mode)
+        sync(dev)
+        yield case, got, bag_check(got, table, idx, w, mode, kind)
+
+
+# A bag index past the table, in a process of its own: the kernel traps,
+# which ends the process's CUDA context, and the error must surface at
+# the next synchronisation (the wrapper itself reads nothing back)
+BAG_OOB_SCRIPT = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels.embedding_bag import kernel
+table = torch.zeros((5, 3), device="cuda")
+idx = torch.tensor([[0, -1], [4, 5]], dtype=torch.int32, device="cuda")
+kernel.embedding_bag(table, idx)
+print("launched", flush=True)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("error at synchronize:", str(e).strip().splitlines()[0],
+          flush=True)
+    sys.exit(0)
+sys.exit(3)
+"""
+
+
+def bag_out_of_range() -> str:
+    """Run BAG_OOB_SCRIPT; return the CUDA error it saw at the
+    synchronisation, or raise."""
+    proc = subprocess.run(
+        [sys.executable, "-c", BAG_OOB_SCRIPT,
+         str(Path(__file__).resolve().parent / "src")],
+        capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 2 or lines[0] != "launched":
+        raise PhaseError(f"embedding_bag with an index past the table: exit "
+                         f"{proc.returncode}, stdout {proc.stdout!r}, stderr "
+                         f"{proc.stderr[-2000:]!r}")
+    return lines[1]
+
+
 def bag_bound(table, idx, w) -> float:
     """Bound ms (bytes): idx (and weights) once, each distinct row read
     once (row 0 for pads), the output once, over the HBM rate."""
     rows = int(torch.unique(idx.clamp(min=0)).numel())
     es = table.element_size()
-    nbytes = idx.numel() * 4 + (0 if w is None else w.numel() * es) \
+    nbytes = idx.numel() * idx.element_size() \
+        + (0 if w is None else w.numel() * es) \
         + rows * table.shape[1] * es + idx.shape[0] * table.shape[1] * es
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bag_full_runs(seed: int, dev, cfg) -> tuple:
+    """sasrec's table (``cfg``'s rows, fp32) and, by label, (idx, mode,
+    bag_check kind) of its train_batch bags (65,536 histories of seq_len
+    items, 20 % pads; sum and mean) and of phase 5's one-index lookups (a
+    512-user batch's histories, retrieval_cand's 1,000,000 candidates)."""
+    from repro_torch.models.sasrec import table_rows
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((table_rows(cfg), cfg.d_embed), generator=gen,
+                        device=dev) * 0.02
+    big = torch.randint(1, cfg.n_items + 1, (65_536, cfg.seq_len),
+                        generator=gen, device=dev, dtype=torch.int32)
+    big[torch.rand(big.shape, generator=gen, device=dev) < 0.2] = -1
+    one = torch.randint(1, cfg.n_items + 1, (512 * cfg.seq_len, 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    cands = torch.randint(1, cfg.n_items + 1, (1_000_000, 1),
+                          generator=gen, device=dev, dtype=torch.int32)
+    return table, {"train_batch sum": (big, "sum", "ref"),
+                   "train_batch mean": (big, "mean", "ref"),
+                   "encode 512x50 one-index": (one, "sum", "one"),
+                   "retrieval 1M one-index": (cands, "sum", "one")}
 
 
 def phase_bag(seed: int, reps: int, device: str = "cuda",
               cfg=None) -> dict:
     import torch.nn.functional as F
-    from repro_torch.models.sasrec import table_rows
     dev = torch.device(device)
-    rng = np.random.default_rng(seed)
     max_err = 0.0
-    for v, d, b, l, weighted, mode, dt, kind in BAG_CASES:
-        table, idx, w = bag_case(rng, v, d, b, l, weighted, kind, dt, dev)
-        got = ebops.embedding_bag(table, idx, w, mode=mode)
-        sync(dev)
+    for case, got, (ok, err, tol) in bag_edge_cases(seed, dev):
+        v, d, b, l, weighted, mode, dt, kind = case
         if got.dtype != dt or tuple(got.shape) != (b, d):
             raise PhaseError(f"embedding_bag V={v} D={d}: got {got.dtype} "
                              f"{tuple(got.shape)}")
-        ok, err, tol = bag_check(got, table, idx, w, mode, kind)
         if not ok:
             raise PhaseError(f"embedding_bag V={v} D={d} B={b} L={l} {mode} "
                              f"{dt} ({kind}): max |err| {err} exceeds {tol}")
@@ -804,30 +1079,28 @@ def phase_bag(seed: int, reps: int, device: str = "cuda",
         print(f"embedding_bag == plain at V={v} D={d} B={b} L={l} "
               f"weighted={weighted} {mode} {dt} ({kind}): max |err| "
               f"{err:.3g} ({tol})", flush=True)
+    if dev.type == "cuda":
+        # no synchronising call, int32 and int64, sum and mean, weighted
+        rng = np.random.default_rng(seed + 1)
+        for kind, dt in (("ref", torch.float32), ("ref64", torch.bfloat16)):
+            table, idx, w = bag_case(rng, 500, 50, 64, 9, True, kind, dt,
+                                     dev)
+            for mode in ("sum", "mean"):
+                sync_free(lambda: ebops.embedding_bag(table, idx, w, mode))
+                sync_free(lambda: ebk.embedding_bag(table, idx, None,
+                                                    mode == "mean"))
+        print("embedding_bag wrappers (ops and kernel, int32 and int64, sum "
+              "and mean) made no synchronising call", flush=True)
+        print(f"embedding_bag with an index past the table, in a "
+              f"subprocess: {bag_out_of_range()}", flush=True)
 
-    # full size: sasrec's table (configs/sasrec.py), fp32, and its
-    # train_batch bags (65,536 histories of seq_len items)
     cfg = cfg or get_arch("sasrec").config
-    n_rows, d = table_rows(cfg), cfg.d_embed
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    table = torch.randn((n_rows, d), generator=gen, device=dev) * 0.02
-    big = torch.randint(1, cfg.n_items + 1, (65_536, cfg.seq_len),
-                        generator=gen, device=dev, dtype=torch.int32)
-    big[torch.rand(big.shape, generator=gen, device=dev) < 0.2] = -1
-    # phase 5's lookups: one-index bags of a 512-user batch's histories
-    # and of retrieval_cand's 1,000,000 candidates
-    one = torch.randint(1, cfg.n_items + 1, (512 * cfg.seq_len, 1),
-                        generator=gen, device=dev, dtype=torch.int32)
-    cands = torch.randint(1, cfg.n_items + 1, (1_000_000, 1),
-                          generator=gen, device=dev, dtype=torch.int32)
+    table, runs = bag_full_runs(seed, dev, cfg)
+    n_rows, d = table.shape
     out = {}
-    for label, idx, mode in (("train_batch sum", big, "sum"),
-                             ("train_batch mean", big, "mean"),
-                             ("encode 512x50 one-index", one, "sum"),
-                             ("retrieval 1M one-index", cands, "sum")):
+    for label, (idx, mode, kind) in runs.items():
         got = ebops.embedding_bag(table, idx, mode=mode)
-        ok, err, tol = bag_check(got, table, idx, None, mode,
-                                 "ref" if idx is big else "one")
+        ok, err, tol = bag_check(got, table, idx, None, mode, kind)
         if not ok:
             raise PhaseError(f"embedding_bag {label}: max |err| {err} "
                              f"exceeds {tol}")
@@ -848,9 +1121,22 @@ def phase_bag(seed: int, reps: int, device: str = "cuda",
               f"{p_ms:.4f} ms, F.embedding_bag {l_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms (bytes); max |err| {err:.3g} ({tol})",
               flush=True)
+        if dev.type == "cuda":
+            split = device_split(lambda: ebops.embedding_bag(table, idx,
+                                                             mode=mode))
+            print(f"embedding_bag {label}: device ms (torch.profiler, mean "
+                  f"of 5 calls) {split}", flush=True)
+        if dev.type == "cuda" and label.startswith("encode"):
+            # a call of a few µs of work: its time is the wrapper's
+            k_us = host_us(lambda: ebops.embedding_bag(table, idx,
+                                                       mode=mode))
+            l_us = host_us(lambda: F.embedding_bag(
+                lib_idx, table, mode="sum", per_sample_weights=lib_w))
+            print(f"embedding_bag {label}: host {k_us:.2f} µs per call, "
+                  f"F.embedding_bag {l_us:.2f} µs", flush=True)
         out[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes"}
-    del table, big, one, cands
+    del table, runs
     torch.cuda.empty_cache()
     return {"runs": out, "max_abs_err": max_err}
 
@@ -1677,6 +1963,14 @@ def main(argv=None) -> int:
     if not gnn_counts["segment_mp"]:
         raise PhaseError(f"gnn: segment_mp was never launched on the path: "
                          f"{gnn_counts}")
+    gin = get_arch("gin-tu").config          # its two propagate widths
+    want = {f"segment_mp_{o}": 0 for o in ("aggregate", "transform")}
+    for d_in in (gin.d_feat, gin.d_hidden):
+        want[f"segment_mp_{mp_order(d_in, gin.d_hidden, torch.float32)}"] \
+            += args.gnn_steps
+    if {k: gnn_counts[k] for k in want} != want:
+        raise PhaseError(f"gnn: segment_mp orders {gnn_counts}, expected "
+                         f"{want}")
     del w
     small_counts, _ = deployment("host-global", args.seed + 1,
                                  args.small_users, plane=False,

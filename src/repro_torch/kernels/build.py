@@ -18,7 +18,9 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "repro_torch"
@@ -90,3 +92,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def launch_on(t: torch.Tensor, entry: Callable[..., int], *args) -> int:
+    """``entry(*args, stream)``: a library's C entry point called with
+    PyTorch's current CUDA stream on ``t``'s device, with that device
+    current during the call; returns the entry's CUDA error code.  It
+    switches devices only when ``t`` is not on the current one."""
+    dev = t.get_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if torch.cuda.current_device() == dev:
+        return entry(*args, stream)
+    with torch.cuda.device(dev):
+        return entry(*args, stream)

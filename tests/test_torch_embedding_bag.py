@@ -69,3 +69,46 @@ def test_one_index_bags_are_the_rows():
     idx = torch.from_numpy(rng.integers(0, 500, size=(64, 1)).astype(np.int32))
     assert torch.equal(ops.embedding_bag(table, idx), table[idx[:, 0].long()])
     assert kernel.launches["embedding_bag"] == 0      # CPU: no launch
+
+
+@pytest.mark.parametrize("d,es,ptr,vec,lanes", [
+    (50, 4, 0, 8, 32),       # sasrec fp32: 200-byte rows, float2 on 25
+    (50, 2, 0, 4, 32),       # sasrec bf16: 100-byte rows, 4-byte loads
+    (33, 4, 0, 4, 32),       # odd D fp32: one element per lane
+    (33, 2, 0, 2, 32),       # odd D bf16: one element per lane
+    (64, 4, 4, 4, 32),       # a table at a 4-byte-aligned address
+    (64, 4, 8, 8, 32),       # ... at an 8-byte-aligned one
+    (128, 4, 0, 16, 32),     # 32 float4 on 32 lanes
+    (16, 4, 0, 16, 4),       # 64-byte rows: 8 bags per warp
+    (300, 4, 0, 16, 32),     # 75 float4: three slices of 32 lanes
+])
+def test_bag_vector_width_rule(d, es, ptr, vec, lanes):
+    """The widest of 16, 8, 4 bytes dividing the row stride and the
+    pointer, else one element; lanes per bag the power of two at or above
+    the row's vector count, 4 to 32."""
+    got = kernel.vec_bytes(d * es, es, ptr)
+    assert got == vec
+    assert kernel.group_lanes(d * es // got) == lanes
+
+
+@pytest.mark.parametrize("l,per_group", [(1, 8), (2, 4), (3, 3), (7, 2),
+                                         (8, 1), (50, 1)])
+def test_bags_per_group_keeps_eight_rows_in_flight(l, per_group):
+    assert kernel.bags_per_group(l) == per_group
+    assert per_group * l >= kernel.UNROLL or per_group == 1
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_int64_indices_match_int32(mode):
+    """The wrapper takes SASRec's int64 ids as they are; on the CPU (the
+    plain version) they give the int32 result."""
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(300, 50)).astype(np.float32))
+    idx = rng.integers(0, 300, size=(20, 9)).astype(np.int32)
+    idx[rng.random((20, 9)) < 0.2] = -1
+    w = torch.from_numpy((np.abs(rng.normal(size=(20, 9))) + 0.1)
+                         .astype(np.float32))
+    a = ops.embedding_bag(table, torch.from_numpy(idx), w, mode=mode)
+    b = ops.embedding_bag(table, torch.from_numpy(idx.astype(np.int64)), w,
+                          mode=mode)
+    assert torch.equal(a, b)

@@ -86,24 +86,63 @@ def smoke():
 def test_segment_mp_kernel_matches_plain():
     """Card only: the segment_mp kernel == its plain version on the
     device at chip_smoke's cases and tolerances (the reference tests'
-    cases, a hub row split into chunks, gat-cora's D = 1433, bf16) and at
-    F = 300 with a hub; each call is one counted launch."""
+    cases, hub rows split into chunks, gat-cora's D = 1433, bf16, each
+    gather order and their tie) and at F = 300 with a hub and with x at
+    an address only 4-byte aligned; each call is one counted launch of
+    the order chip_smoke's rule names."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     cs = smoke()
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
     smp_kernel.reset_launches()
-    cases = cs.MP_CASES + [(1000, 4000, 64, 300, torch.float32, 3, "hub")]
-    for n, e, d, f, dt, hub, kind in cases:
-        x, w, src, dst = cs.mp_case(rng, n, e, d, f, hub, dev)
-        got = smp_ops.segment_matmul_reduce(x.to(dt), w.to(dt), src, dst, n)
+    orders = set()
+    for case, got, (ok, err, tol), order in cs.mp_edge_cases(0, dev):
+        n, e, d, f, dt, hub, kind = case
         assert got.dtype == dt and got.shape == (n, f)
-        ok, err, tol = cs.mp_check(got, x, w, src, dst, n, kind)
         assert ok, f"N={n} E={e} D={d} F={f} {dt}: max |err| {err}; {tol}"
+        assert order == cs.mp_order(d, f, dt), case
+        orders.add((order, dt))
+    assert len(orders) == 4          # both orders, in fp32 and in bf16
+    rng = np.random.default_rng(0)
+    x, w, src, dst = cs.mp_case(rng, 1000, 4000, 64, 300, 3, dev)
+    got = smp_ops.segment_matmul_reduce(x, w, src, dst, 1000)
+    ok, err, tol = cs.mp_check(got, x, w, src, dst, 1000, "hub")
+    assert ok, f"F = 300: max |err| {err}; {tol}"
+    buf = torch.zeros(1000 * 64 + 1, device=dev)
+    x_off = buf[1:].view(1000, 64)      # aggregate first, 4-byte loads
+    x_off.copy_(x)
+    assert smp_kernel.vec_bytes(64 * 4, 4, x_off.data_ptr()) == 4
+    got = smp_ops.segment_matmul_reduce(x_off, w, src, dst, 1000)
+    ok, err, tol = cs.mp_check(got, x, w, src, dst, 1000, "hub")
+    assert ok, f"offset x: max |err| {err}; {tol}"
     torch.cuda.synchronize()
-    assert smp_kernel.launches["segment_mp"] == len(cases)
+    assert smp_kernel.launches["segment_mp"] == len(cs.MP_CASES) + 2
+    assert smp_kernel.launches["segment_mp"] == \
+        smp_kernel.launches["segment_mp_aggregate"] + \
+        smp_kernel.launches["segment_mp_transform"]
     smp_kernel.reset_launches()
+
+
+def test_segment_mp_plan_on_card_matches_plain():
+    """Card only: the hub plan the kernel builds (three passes: counts,
+    scan, fill) == its plain version, at both levels, for empty rows,
+    rows of exactly CHUNK and CHUNK + 1 edges, an all-hub graph, hubs of
+    more than CHUNK chunks, and graphs spanning several plan blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    c = smp_kernel.CHUNK
+    rng = np.random.default_rng(0)
+    cases = [[0, 0, 5, 0], [c, c + 1, 0, c - 1, 1], [3 * c, 2 * c + 1],
+             [2, c * c + 5, 0, c * c], [0] * 3000 + [c + 1] * 7,
+             list(rng.zipf(1.3, 5000) % (4 * c * c))]
+    for degrees in cases:
+        indptr = torch.from_numpy(np.r_[0, np.cumsum(degrees)]
+                                  .astype(np.int32)).cuda()
+        for chunk in (c, 4):
+            got = smp_kernel.plan_on_card(indptr, chunk)
+            assert torch.equal(got, smp_kernel.plan(indptr, chunk))
+            assert torch.equal(smp_kernel.plan_on_card(got, chunk),
+                               smp_kernel.plan(got, chunk))
 
 
 def test_segment_mp_wrapper_refuses_cpu_and_grad():
@@ -155,32 +194,84 @@ def test_flash_attention_kernel_matches_plain():
 
 def test_embedding_bag_kernel_matches_plain():
     """Card only: the embedding_bag kernel == its plain version at
-    chip_smoke's cases and tolerances (the reference tests' cases, an
-    all-pad bag, mean mode with weights in bf16, one-index bags bit for
-    bit, more than 32 indices per bag); each call is one counted launch."""
+    chip_smoke's cases and tolerances (the reference tests' cases,
+    all-pad bags, mean mode with weights in bf16, one-index bags bit for
+    bit, more than 32 indices per bag, odd D, several bags per group,
+    int64 indices) and over a table at an address only 4-byte aligned;
+    each call is one counted launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     cs = smoke()
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
     eb_kernel.reset_launches()
-    for v, d, b, l, weighted, mode, dt, kind in cs.BAG_CASES:
-        table, idx, w = cs.bag_case(rng, v, d, b, l, weighted, kind, dt, dev)
-        got = eb_ops.embedding_bag(table, idx, w, mode=mode)
+    for case, got, (ok, err, tol) in cs.bag_edge_cases(0, dev):
+        v, d, b, l, weighted, mode, dt, kind = case
         assert got.dtype == dt and got.shape == (b, d)
-        ok, err, tol = cs.bag_check(got, table, idx, w, mode, kind)
         assert ok, f"V={v} D={d} B={b} L={l} {mode} {dt}: {err}; {tol}"
+    rng = np.random.default_rng(0)
+    table, idx, w = cs.bag_case(rng, 400, 48, 50, 11, True, "ref",
+                                torch.float32, dev)
+    buf = torch.zeros(400 * 48 + 1, device=dev)
+    t_off = buf[1:].view(400, 48)
+    t_off.copy_(table)
+    assert eb_kernel.vec_bytes(48 * 4, 4, t_off.data_ptr()) == 4
+    for mode in ("sum", "mean"):
+        got = eb_ops.embedding_bag(t_off, idx, w, mode=mode)
+        ok, err, tol = cs.bag_check(got, table, idx, w, mode, "ref")
+        assert ok, f"offset table, {mode}: {err}; {tol}"
     torch.cuda.synchronize()
-    assert eb_kernel.launches["embedding_bag"] == len(cs.BAG_CASES)
+    assert eb_kernel.launches["embedding_bag"] == len(cs.BAG_CASES) + 2
+    eb_kernel.reset_launches()
+
+
+def test_embedding_bag_index_past_table_faults_at_sync():
+    """Card only: a bag index >= V launches (the wrapper reads nothing
+    back), and the kernel's trap raises a CUDA error at the next
+    torch.cuda.synchronize(), in a subprocess (a trap ends the
+    context)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    assert "error at synchronize" in smoke().bag_out_of_range()
+
+
+def test_kernel_wrappers_make_no_synchronising_call():
+    """Card only: embedding_bag and segment_mp, through ops and kernel,
+    run under torch.cuda.set_sync_debug_mode("error") without raising:
+    neither wrapper synchronises or reads device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cs = smoke()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    for d, f in ((48, 24), (16, 64)):                 # both orders
+        x, w, src, dst = cs.mp_case(rng, 300, 5000, d, f, 5, dev)
+        dst_s, order = torch.sort(dst, stable=True)
+        src_s, indptr = src[order], smp_ops.csr_indptr(dst_s, 300)
+        for dt in (torch.float32, torch.bfloat16):
+            xt, wt = x.to(dt), w.to(dt)
+            cs.sync_free(lambda: smp_ops.segment_matmul_reduce(
+                xt, wt, src, dst, 300))
+            cs.sync_free(lambda: smp_kernel.segment_mp(xt, wt, src_s, indptr))
+    for kind, dt in (("ref", torch.float32), ("ref64", torch.bfloat16)):
+        table, idx, w = cs.bag_case(rng, 500, 50, 64, 9, True, kind, dt, dev)
+        for mode in ("sum", "mean"):
+            cs.sync_free(lambda: eb_ops.embedding_bag(table, idx, w, mode))
+            cs.sync_free(lambda: eb_kernel.embedding_bag(
+                table, idx, None, mode == "mean"))
+    torch.cuda.synchronize()
+    smp_kernel.reset_launches()
     eb_kernel.reset_launches()
 
 
 def test_attention_and_bag_wrappers_refuse_cpu_and_grad():
     """The kernel wrappers launch on CUDA tensors or raise: they refuse
-    CPU tensors and inputs that require grad (no backward), and the bag
-    refuses an index past the table."""
+    CPU tensors and inputs that require grad (no backward).  The bag's
+    index range is checked on the card (see
+    test_embedding_bag_index_past_table_faults_at_sync)."""
     q = torch.zeros((1, 4, 2, 8))
     k = torch.zeros((1, 4, 1, 8))
+    fa_kernel.reset_launches()
+    eb_kernel.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa_kernel.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="no backward"):
@@ -193,8 +284,4 @@ def test_attention_and_bag_wrappers_refuse_cpu_and_grad():
         eb_kernel.embedding_bag(table.requires_grad_(), idx)
     assert fa_kernel.launches["flash_attention"] == 0
     assert eb_kernel.launches["embedding_bag"] == 0
-    if torch.cuda.is_available():
-        with pytest.raises(IndexError, match="out of range"):
-            eb_kernel.embedding_bag(torch.zeros((5, 3), device="cuda"),
-                                    torch.full((2, 2), 5, dtype=torch.int32,
-                                               device="cuda"))
+

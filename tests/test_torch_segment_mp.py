@@ -140,13 +140,90 @@ def test_propagate_matmul_kernel_switch_and_sorted_flag():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def chunk_ranges(ptr, cptr, chunk):
+    """``chunk_kernel``'s view of a plan ``cptr`` over row pointers
+    ``ptr``, worked out as ``csrc/segment_mp.cu`` does: chunk k finds its
+    row as the last a with ``cptr[a] <= k`` (binary search) and covers
+    ``chunk`` entries from ``ptr[a] + (k - cptr[a]) * chunk``, clipped at
+    the row's end.  Returns (a, lo, hi) per chunk."""
+    ip, cp = ptr.tolist(), cptr.tolist()
+    n = len(ip) - 1
+    out = []
+    for k in range(cp[n]):
+        a, b = 0, n
+        while b - a > 1:
+            mid = (a + b) >> 1
+            a, b = (mid, b) if cp[mid] <= k else (a, mid)
+        lo = ip[a] + (k - cp[a]) * chunk
+        out.append((a, lo, min(lo + chunk, ip[a + 1])))
+    return out
+
+
+def expand_plan(indptr, chunk):
+    """Per dst row, the edge ranges the CUDA passes sum for it, in order:
+    ``row_kernel`` sums a row's second-level partials when it has any
+    (each the sum of a range of first-level partials), else its
+    first-level partials (each the sum of a range of edges), else its own
+    edges.  Returns (chunk_ptr, chunk2_ptr, ranges per row)."""
+    c1 = smp_kernel.plan(indptr, chunk)
+    c2 = smp_kernel.plan(c1, chunk)
+    l1 = chunk_ranges(indptr, c1, chunk)
+    l2 = chunk_ranges(c1, c2, chunk)
+    ip, p1, p2 = indptr.tolist(), c1.tolist(), c2.tolist()
+    rows = []
+    for v in range(len(ip) - 1):
+        if p2[v + 1] > p2[v]:
+            assert all(l2[k][0] == v for k in range(p2[v], p2[v + 1]))
+            parts = [p for k in range(p2[v], p2[v + 1])
+                     for p in range(l2[k][1], l2[k][2])]
+            assert all(0 < l2[k][2] - l2[k][1] <= chunk
+                       for k in range(p2[v], p2[v + 1]))
+        else:
+            parts = list(range(p1[v], p1[v + 1]))
+        assert all(l1[k][0] == v for k in parts)
+        rows.append([l1[k][1:] for k in parts] if parts
+                    else [(ip[v], ip[v + 1])])
+    return c1, c2, rows
+
+
+def check_plan(indptr, chunk):
+    """Every edge of every row is summed exactly once and in edge order;
+    only rows above ``chunk`` edges are split, each into ceil(deg /
+    chunk) non-empty chunks of at most ``chunk`` edges, and only rows of
+    more than ``chunk`` chunks a second time; both levels' chunk counts
+    stay within the bounds the wrapper allocates from N and E alone."""
+    c1, c2, rows = expand_plan(indptr, chunk)
+    for c in (c1, c2):
+        assert c.dtype == torch.int32
+        assert c.shape == indptr.shape and int(c[0]) == 0
+    n, e = indptr.numel() - 1, int(indptr[-1])
+    m1 = smp_kernel.max_chunks(n, e, chunk)
+    assert int(c1[-1]) <= m1
+    assert int(c2[-1]) <= smp_kernel.max_chunks(n, m1, chunk)
+    deg = np.diff(indptr.numpy())
+    n_ch = np.diff(c1.numpy())
+    np.testing.assert_array_equal(np.flatnonzero(n_ch),
+                                  np.flatnonzero(deg > chunk))
+    np.testing.assert_array_equal(n_ch[deg > chunk],
+                                  -(-deg[deg > chunk] // chunk))
+    np.testing.assert_array_equal(np.flatnonzero(np.diff(c2.numpy())),
+                                  np.flatnonzero(n_ch > chunk))
+    ip = indptr.tolist()
+    for v, ranges in enumerate(rows):
+        edges = [j for lo, hi in ranges for j in range(lo, hi)]
+        assert edges == list(range(ip[v], ip[v + 1])), v
+        if deg[v] > chunk:
+            assert all(0 < hi - lo <= chunk for lo, hi in ranges)
+    return rows
+
+
 @pytest.mark.parametrize("chunk", [1, 4, 1024])
 def test_kernel_plan_covers_every_heavy_row_once(chunk):
     """The hub-splitting plan the CUDA kernel runs from (built on the
     tensors' device, so checkable here): every row above ``chunk`` edges
     is cut into consecutive chunks of at most ``chunk`` edges that tile
-    its edge range exactly; summing x rows chunk by chunk gives the
-    row's sum."""
+    its edge range exactly, every other row is summed whole; summing x
+    rows chunk by chunk gives the row's sum."""
     n, e, d = 50, 3000, 4
     x, _, src, dst = mp_case(n, e, d, 1, 3, hub=7)
     dst = np.sort(dst)
@@ -154,18 +231,56 @@ def test_kernel_plan_covers_every_heavy_row_once(chunk):
     np.testing.assert_array_equal(
         indptr.numpy(), np.searchsorted(dst, np.arange(n + 1)))
     assert indptr.dtype == torch.int32
-    rows, ptr, lo, hi = smp_kernel.plan(indptr, chunk)
-    deg = np.diff(indptr.numpy())
-    np.testing.assert_array_equal(rows.numpy(), np.flatnonzero(deg > chunk))
-    for t in (rows, ptr, lo, hi):
-        assert t.dtype == torch.int32
+    rows = check_plan(indptr, chunk)
     xs = torch.from_numpy(x)[torch.from_numpy(src).long()]
-    for h, r in enumerate(rows.tolist()):
-        cl, ch = lo[ptr[h]:ptr[h + 1]], hi[ptr[h]:ptr[h + 1]]
-        assert cl[0] == indptr[r] and ch[-1] == indptr[r + 1]
-        assert torch.equal(cl[1:], ch[:-1])
-        assert bool(((ch - cl) <= chunk).all() and ((ch - cl) > 0).all())
-        parts = torch.stack([xs[a:b].sum(0) for a, b in
-                             zip(cl.tolist(), ch.tolist())])
-        torch.testing.assert_close(parts.sum(0), xs[indptr[r]:indptr[r + 1]]
+    for v, ranges in enumerate(rows):
+        parts = torch.stack([xs[a:b].sum(0) for a, b in ranges])
+        torch.testing.assert_close(parts.sum(0), xs[indptr[v]:indptr[v + 1]]
                                    .sum(0), rtol=1e-5, atol=1e-5)
+
+
+C = smp_kernel.CHUNK
+
+
+@pytest.mark.parametrize("degrees", [
+    [0, 0, 5, 0],                          # empty rows
+    [C, C + 1, 0, C - 1, 1],               # exactly CHUNK and CHUNK + 1
+    [3 * C, 2 * C + 1, 5 * C + 7, C + 1],  # every row a hub
+    [0, 0, 0],                             # no edges at all
+    [1] * 40 + [17 * C + 3],               # one hub of 18 chunks
+    [2, C * C + 5, 0, C * C],              # two levels, and just one
+])
+def test_kernel_plan_edge_cases(degrees):
+    """The sync-free plan at the kernel's own CHUNK: empty rows, rows of
+    exactly CHUNK and CHUNK + 1 edges, an all-hub graph, a graph without
+    edges, a hub of many chunks and one of more than CHUNK chunks (split
+    again) are each covered exactly once and in order."""
+    indptr = torch.from_numpy(np.r_[0, np.cumsum(degrees)].astype(np.int32))
+    check_plan(indptr, C)
+
+
+@pytest.mark.parametrize("d,f,dtype,order", [
+    (100, 64, torch.float32, "transform"),    # ogb-products: 256 < 400 B
+    (1433, 8, torch.float32, "transform"),    # gat-cora: 32 B < 5.7 KB
+    (16, 64, torch.float32, "aggregate"),     # gin-tu, first layer
+    (64, 64, torch.float32, "aggregate"),     # gin-tu, tie: 256 = 256 B
+    (100, 64, torch.bfloat16, "aggregate"),   # bf16 x: 256 > 200 B
+    (64, 32, torch.bfloat16, "aggregate"),    # bf16 tie: 128 = 128 B
+    (100, 8, torch.bfloat16, "transform"),    # 32 < 200 B
+])
+def test_select_order_gathers_the_narrower_rows(d, f, dtype, order):
+    assert smp_kernel.select_order(d, f, dtype) == order
+
+
+@pytest.mark.parametrize("width,es,ptr,vec,lanes", [
+    (64, 4, 0, 16, 16),      # ogb-products' h rows: 16 lanes x float4
+    (100, 4, 0, 16, 32),     # ogb-products' x rows: 25 float4, 32 lanes
+    (16, 4, 0, 16, 4),       # gin-tu's x: one row per 4 lanes
+    (10, 4, 0, 8, 8),        # F = 10: 5 float2
+    (33, 2, 0, 2, 32),       # odd bf16 width: one element, 33 -> slices
+    (64, 4, 4, 4, 32),       # x at a 4-byte-aligned address
+])
+def test_gather_launch_shape_rule(width, es, ptr, vec, lanes):
+    got = smp_kernel.vec_bytes(width * es, es, ptr)
+    assert got == vec
+    assert smp_kernel.group_lanes(width * es // got) == lanes
