@@ -6,11 +6,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Device and build: the card's name and power limit, and the build of
    every CUDA source of the port (one ``nvcc`` per source, in parallel).
-2. Kernels against their plain versions: ``before``, ``visibility`` and
-   ``before_pairs`` on seeded int32 stamp matrices (NO_STAMP rows, mixed
-   epochs, equal vectors) at C in {3, 9} and N in {1, 1023, 1025,
-   68,993,773}; each must be bit-identical to its plain PyTorch version
-   on the card.  At the largest N each kernel is timed with CUDA events.
+2. Kernels against their plain versions: ``before`` and
+   ``before_pairs`` in both output forms (a byte per row, and a bit per
+   row packed in int32 words, held against ``ref.pack_bits``), their
+   host entries (``before_host``, ``before_pairs_host``: numpy in and
+   out, one round trip) and ``visibility``, on seeded int32 stamp
+   matrices (NO_STAMP rows, mixed epochs, equal vectors) at C in {3, 9}
+   and N in {1, 31, 32, 33, 1023, 1025, 68,993,773}, through row views
+   whose address is not 16-byte aligned, and at C = 17 and 40 (widths
+   read at run time, blocks of fewer warps); each must be
+   bit-identical to its plain PyTorch version.  At the largest N each
+   device-facing form is timed with CUDA events beside its bound and its
+   whole tables' bytes; then the host entries' µs per warm call at N 64
+   and 1,024, beside the split of the same compare made through the
+   device-tensor wrapper.  ``scripts/stamp_mutants.py`` shows that
+   broken copies of the kernel fail these checks.
 2b. ``segment_mp`` (fused message passing) against its plain version in
    fp64 on the card: the reference tests' cases (fp32, bf16, the 17x3
    ragged case), hubs spanning several chunks, gat-cora's D = 1433, each
@@ -79,6 +89,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5. SASRec serving at its published config behind ``RecServer``: top-10
    over the 1M-item catalog for 512 users and 1,000,000 candidate scores
    for one user, held against direct indexing; embedding_bag must launch.
+   Then item ids past the table and -1 must raise ``IndexError`` from the
+   live server, and its next top-10 must equal its earlier answer.
 6. One JSON line per the kernels table, the card's name and power limit,
    and last the result line.
 
@@ -193,22 +205,85 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def kernel_cases(rng, n: int, c: int, dev):
+# N of the small stamp cases: the tails of a 32-row bit word and of a
+# kernel's 128-row tile
+STAMP_NS = (1, 31, 32, 33, 1023, 1025)
+# (N, C, offset) cases beyond those: views starting `offset` rows into a
+# longer table (at C = 3 and 9 an address that is not 16-byte aligned),
+# and widths the kernel reads at run time (C = 17), in blocks of fewer
+# warps (C = 40)
+STAMP_EXTRA = ((1025, 3, 1), (100_000, 3, 1), (1025, 9, 1), (1025, 17, 0),
+               (1025, 17, 1), (3000, 40, 0))
+
+
+def stamp_case(rng, n: int, c: int, dev, offset: int = 0) -> dict:
+    """Seeded stamps around a query q (``stamp_rows``): host create and
+    delete rows, q and per-row query stamps qs (half of them a later
+    epoch), and their device tensors; with ``offset`` the device tables
+    are views starting ``offset`` rows into longer tables."""
     q = rng.integers(0, 6, size=c, dtype=np.int32)
     q[0] = 1
-    create = torch.from_numpy(stamp_rows(rng, n, q)).to(dev)
-    delete = torch.from_numpy(stamp_rows(rng, n, q)).to(dev)
-    qs_host = np.repeat(q[None], n, axis=0)
-    qs_host[rng.random(n, dtype=np.float32) < 0.5, 0] += 1
-    qs = torch.from_numpy(qs_host).to(dev)
-    qt = torch.from_numpy(q).to(dev)
-    return {
-        "before": ((create, qt), mvops.before_mask, mvref.before),
-        "visibility": ((create, delete, qt), mvops.visibility_mask,
-                       mvref.visibility),
-        "before_pairs": ((create, qs), mvops.before_pairs,
-                         mvref.before_pairs),
+    create = stamp_rows(rng, n, q)
+    delete = stamp_rows(rng, n, q)
+    qs = np.repeat(q[None], n, axis=0)
+    qs[rng.random(n, dtype=np.float32) < 0.5, 0] += 1
+
+    def up(a):
+        t = torch.empty((n + offset, c), dtype=torch.int32, device=dev)
+        t = t[offset:]
+        t.copy_(torch.from_numpy(a))
+        return t
+    return {"host": (create, delete, q, qs),
+            "dev": (up(create), up(delete), torch.from_numpy(q).to(dev),
+                    up(qs))}
+
+
+def stamp_checks(case: dict) -> dict:
+    """Every stamp-compare form and entry against its plain version on
+    the case's inputs: label -> rows (bit form: words) that differ, -1
+    for a wrong dtype or shape.  Each label is one launch."""
+    create, _, q, qs = case["host"]
+    rows, dele, qt, qst = case["dev"]
+    want_b = mvref.before(rows, qt)
+    want_p = mvref.before_pairs(rows, qst)
+    pairs = {
+        "before": (mvops.before_mask(rows, qt), want_b),
+        "before bits": (mvk.before(rows, qt, bits=True),
+                        mvref.pack_bits(want_b)),
+        "before_pairs": (mvops.before_pairs(rows, qst), want_p),
+        "before_pairs bits": (mvk.before_pairs(rows, qst, bits=True),
+                              mvref.pack_bits(want_p)),
+        "visibility": (mvops.visibility_mask(rows, dele, qt),
+                       mvref.visibility(rows, dele, qt)),
+        "before_host": (torch.from_numpy(mvk.before_host(create, q)),
+                        want_b.cpu()),
+        "before_pairs_host": (torch.from_numpy(
+            mvk.before_pairs_host(create, qs)), want_p.cpu()),
     }
+    torch.cuda.synchronize()
+    out = {}
+    for label, (got, want) in pairs.items():
+        if got.dtype != want.dtype or got.shape != want.shape:
+            out[label] = -1
+        else:
+            out[label] = int((got != want.to(got.device)).sum())
+    return out
+
+
+def stamp_edge_cases(seed: int, dev, big_n: int = 0):
+    """Yield ((N, C, offset), case, stamp_checks) for C in (3, 9) and N in
+    STAMP_NS (and ``big_n``), then the cases of STAMP_EXTRA."""
+    rng = np.random.default_rng(seed)
+    shapes = [(n, c, 0) for c in (3, 9)
+              for n in (*STAMP_NS, *((big_n,) if big_n else ()))]
+    for n, c, off in shapes + list(STAMP_EXTRA):
+        case = stamp_case(rng, n, c, dev, off)
+        if off and case["dev"][0].data_ptr() % 16 == 0:
+            raise PhaseError(f"stamp view N={n} C={c} is 16-byte aligned")
+        yield (n, c, off), case, stamp_checks(case)
+        del case
+        mvk.free_staging()
+        torch.cuda.empty_cache()
 
 
 def needed_words(name: str, args) -> int:
@@ -230,50 +305,131 @@ def needed_words(name: str, args) -> int:
     return words
 
 
+def device_route_split(rows: np.ndarray, q: np.ndarray, per_row: bool,
+                       reps: int = 200) -> dict:
+    """Median host µs of each part of one ``before_pairs`` (``per_row``)
+    or ``before`` compare made through the device-tensor wrapper from
+    host arrays: two pageable uploads (``analytics.to_device``), the
+    wrapper's checks, the rest of the wrapper (output allocation and
+    launch) and the blocking read-back (``.cpu().numpy()``); ``call`` is
+    the whole round trip."""
+    wrapper = mvops.before_pairs if per_row else mvops.before_mask
+    parts = {k: [] for k in ("copies", "checks", "launch", "read_back",
+                             "call")}
+    for i in range(reps + 20):
+        t0 = time.perf_counter()
+        r = analytics.to_device(rows, "cuda")
+        s = analytics.to_device(q, "cuda")
+        t1 = time.perf_counter()
+        mvk.check((r,), s, per_row=per_row)
+        t2 = time.perf_counter()
+        out = wrapper(r, s)
+        t3 = time.perf_counter()
+        out.cpu().numpy()
+        t4 = time.perf_counter()
+        if i < 20:                                  # warm-up
+            continue
+        for k, v in (("copies", t1 - t0), ("checks", t2 - t1),
+                     ("launch", (t3 - t2) - (t2 - t1)),
+                     ("read_back", t4 - t3),
+                     ("call", (t1 - t0) + (t4 - t2))):
+            parts[k].append(v * 1e6)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def host_entry_us(rng, n: int, c: int = 3, reps: int = 200) -> dict:
+    """Median host µs per warm call (``reps`` calls) of each host entry at
+    N = ``n``, and the split of the same compares made through the
+    device-tensor route (``device_route_split``)."""
+    create, _, q, qs = stamp_case(rng, n, c, "cpu")["host"]
+    out = {}
+    for name, fn in (("before_pairs_host",
+                      lambda: mvk.before_pairs_host(create, qs)),
+                     ("before_host", lambda: mvk.before_host(create, q))):
+        times = []
+        for i in range(reps + 20):
+            t0 = time.perf_counter()
+            fn()
+            if i >= 20:
+                times.append((time.perf_counter() - t0) * 1e6)
+        out[name] = statistics.median(times)
+    out["before_pairs device route"] = device_route_split(create, qs, True,
+                                                          reps)
+    out["before device route"] = device_route_split(create, q, False, reps)
+    return out
+
+
 def phase_kernels(seed: int, big_n: int, reps: int) -> dict:
+    """Phase 2: every stamp-compare form and entry == its plain version
+    (``stamp_edge_cases``); at N = ``big_n`` each device-facing form is
+    timed beside its plain version, its bound and its whole tables'
+    bytes; then the host entries' µs per small call."""
     dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
     timings, max_err = {}, {}
-    for c in (3, 9):
-        for n in (1, 1023, 1025, big_n):
-            cases = kernel_cases(rng, n, c, dev)
-            for name, (args, wrapper, plain) in cases.items():
-                got = wrapper(*args)
-                want = plain(*args)
-                torch.cuda.synchronize()
-                if got.dtype != torch.bool or got.shape != want.shape:
-                    raise PhaseError(f"{name} C={c} N={n}: got "
-                                     f"{got.dtype} {tuple(got.shape)}")
-                err = int((got.to(torch.int8) - want.to(torch.int8))
-                          .abs().max())
-                max_err[name] = max(max_err.get(name, 0), err)
-                if err:
-                    bad = int((got != want).sum())
-                    raise PhaseError(f"{name} C={c} N={n}: {bad} rows differ "
-                                     f"from the plain version")
-                if n != big_n:
-                    continue
-                k_ms = time_ms(lambda: wrapper(*args), reps)
-                p_ms = time_ms(lambda: plain(*args), max(3, reps // 4))
-                full = sum(t.numel() * 4 for t in args) + n
-                words = needed_words(name, args)
-                nbytes = words * 4 + n
-                bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                               2 * words / INT32_OPS_PER_S) * 1e3
-                print(f"kernel {name} C={c} N={n}: {k_ms:.4f} ms, plain "
-                      f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms (this "
-                      f"data needs {nbytes} bytes: "
-                      f"{nbytes / k_ms / 1e6:.1f} GB/s; whole tables "
-                      f"{full} bytes: {full / k_ms / 1e6:.1f} GB/s)",
-                      flush=True)
-                timings[(name, c)] = {"ms": k_ms, "plain_ms": p_ms,
-                                      "bound_ms": bound_ms}
-            del cases
-            torch.cuda.empty_cache()
-        print(f"kernels == plain versions at C={c}, N in "
-              f"(1, 1023, 1025, {big_n})", flush=True)
+    for (n, c, off), case, checks in stamp_edge_cases(seed, dev, big_n):
+        for label, bad in checks.items():
+            name = label.split()[0].removesuffix("_host")
+            max_err[name] = max(max_err.get(name, 0), int(bad != 0))
+            if bad:
+                what = ("a wrong dtype or shape" if bad < 0
+                        else f"{bad} rows or words differing")
+                raise PhaseError(f"{label} C={c} N={n} offset {off}: {what} "
+                                 f"against the plain version")
+        if n != big_n:
+            continue
+        rows, dele, qt, qst = case["dev"]
+        copy_ms = time_ms(lambda: rows.clone(), reps)
+        print(f"yardstick C={c} N={n}: rows.clone() {copy_ms:.4f} ms, "
+              f"{2 * rows.numel() * 4 / copy_ms / 1e6:.1f} GB/s read + "
+              f"written (the card's copy rate in this run)", flush=True)
+        forms = {"before": ((rows, qt), False, mvops.before_mask,
+                            mvref.before),
+                 "before bits": ((rows, qt), True,
+                                 lambda r, q: mvk.before(r, q, bits=True),
+                                 None),
+                 "visibility": ((rows, dele, qt), False,
+                                mvops.visibility_mask, mvref.visibility),
+                 "before_pairs": ((rows, qst), False, mvops.before_pairs,
+                                  mvref.before_pairs),
+                 "before_pairs bits": ((rows, qst), True,
+                                       lambda r, q: mvk.before_pairs(
+                                           r, q, bits=True), None)}
+        for label, (args, bits, wrapper, plain) in forms.items():
+            k_ms = time_ms(lambda: wrapper(*args), reps)
+            p_ms = (time_ms(lambda: plain(*args), max(3, reps // 4))
+                    if plain else None)
+            out_bytes = 4 * ((n + 31) // 32) if bits else n
+            full = sum(t.numel() * 4 for t in args) + out_bytes
+            words = needed_words(label.split()[0], args)
+            nbytes = words * 4 + out_bytes
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           2 * words / INT32_OPS_PER_S) * 1e3
+            whole_ms = full / HBM_BYTES_PER_S * 1e3
+            plain_txt = "" if p_ms is None else f", plain {p_ms:.4f} ms"
+            print(f"kernel {label} C={c} N={n}: {k_ms:.4f} ms{plain_txt}, "
+                  f"bound {bound_ms:.4f} ms (this data needs {nbytes} "
+                  f"bytes: {nbytes / k_ms / 1e6:.1f} GB/s); whole tables "
+                  f"{full} bytes: {full / k_ms / 1e6:.1f} GB/s, "
+                  f"{whole_ms:.4f} ms at 3.35 TB/s", flush=True)
+            timings[(label, c)] = {"ms": k_ms, "plain_ms": p_ms,
+                                   "bound_ms": bound_ms,
+                                   "whole_ms": whole_ms}
+    print(f"stamp compares == plain versions (bytes, bits, host entries, "
+          f"visibility) at C in (3, 9), N in {(*STAMP_NS, big_n)} and "
+          f"(N, C, offset rows) {STAMP_EXTRA}", flush=True)
+    rng = np.random.default_rng(seed + 1)
+    for n in (64, 1024):
+        us = host_entry_us(rng, n)
+        print(f"host entries N={n} C=3, median of 200 warm calls: "
+              f"before_pairs_host {us['before_pairs_host']:.1f} us, "
+              f"before_host {us['before_host']:.1f} us; device-tensor "
+              f"route (split, us): before_pairs "
+              f"{json.dumps(us['before_pairs device route'])}, before "
+              f"{json.dumps(us['before device route'])}", flush=True)
+        timings[("host_us", n)] = us
     for (name, c), t in timings.items():
-        t["max_abs_err"] = max_err[name]
+        if name in max_err:
+            t["max_abs_err"] = max_err[name]
     return timings
 
 
@@ -1556,6 +1712,7 @@ class BoundaryClock:
                       (DeviceColumnPlane, "before_all")]
         self.secs = {name: 0.0 for _, name in self.sites}
         self.calls = {name: 0 for _, name in self.sites}
+        self.each = {name: [] for _, name in self.sites}
 
     def __enter__(self):
         self._saved = [(obj, name, getattr(obj, name))
@@ -1566,14 +1723,23 @@ class BoundaryClock:
                 try:
                     return _fn(*a, **kw)
                 finally:
-                    self.secs[_name] += time.perf_counter() - t0
+                    dt = time.perf_counter() - t0
+                    self.secs[_name] += dt
                     self.calls[_name] += 1
+                    self.each[_name].append(dt)
             setattr(obj, name, timed)
         return self
 
     def __exit__(self, *exc):
         for obj, name, fn in self._saved:
             setattr(obj, name, fn)
+
+    def line(self) -> str:
+        """Calls, seconds and median µs per call of each entry point."""
+        return ", ".join(
+            f"{k} {self.calls[k]} calls {self.secs[k]:.3f} s (median "
+            f"{statistics.median(self.each[k] or [0.0]) * 1e6:.1f} us)"
+            for k in self.secs)
 
 
 def run_on(device: str, seed: int, n_users: int, plane: bool, n_prog: int,
@@ -1595,9 +1761,7 @@ def run_on(device: str, seed: int, n_users: int, plane: bool, n_prog: int,
         if device == "cuda":
             torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    line = ", ".join(f"{k} {bc.calls[k]} calls {bc.secs[k]:.3f} s"
-                     for k in bc.secs)
-    return steps, recs, dict(mvk.launches), secs, line, w
+    return steps, recs, dict(mvk.launches), secs, bc.line(), w
 
 
 def cpu_twin(*args):
@@ -1837,6 +2001,78 @@ REC_SCORE_TOL = 1e-6   # max |score diff| / max |score|: the bag of one index
 #                        should agree bit for bit (0 expected)
 
 
+def rec_bad_id(srv, hist: np.ndarray, top: np.ndarray) -> str:
+    """An item id one past the table, then -1, sent to the live server
+    must raise IndexError (checked on the host, before any upload), and
+    the next top_k must equal ``top``, the server's earlier answer."""
+    rows = srv.params["item_emb"].shape[0]
+    errors = []
+    for wrong, call in ((rows, "top_k"), (-1, "score")):
+        bad = hist[:2].copy()
+        bad[0, -1] = wrong
+        try:
+            if call == "top_k":
+                srv.top_k(bad, k=10)
+            else:
+                srv.score(hist[:1], bad[:1])
+        except IndexError as e:
+            errors.append(f"{call}: {e}")
+            continue
+        raise PhaseError(f"phase 5: item id {wrong} in {call} did not raise "
+                         f"IndexError")
+    again = srv.top_k(hist, k=10)
+    sync(srv.device)
+    if not np.array_equal(again, top):
+        raise PhaseError("phase 5: after a bad item id the server's top_k "
+                         "differs from its earlier answer")
+    return (f"bad item ids raised IndexError ({'; '.join(errors)}); the next "
+            f"top_k equals the earlier answer")
+
+
+# An item id past the table sent to a RecServer on the card, in a process
+# of its own (had the id reached the bag kernel, its trap would end the
+# process's CUDA context): it must raise IndexError, and the same server
+# must then answer a good call as before
+REC_BAD_ID_SCRIPT = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_arch
+from repro_torch.launch.train import reduced_config
+from repro_torch.models import sasrec
+from repro_torch.runtime import RecServer
+cfg = reduced_config(get_arch("sasrec"))
+srv = RecServer(sasrec.init_params(cfg, seed=0), cfg)
+hist = np.random.default_rng(0).integers(1, cfg.n_items + 1, (4, cfg.seq_len))
+top = srv.top_k(hist, k=5)
+bad = hist.copy()
+bad[0, 0] = srv.params["item_emb"].shape[0]
+try:
+    srv.top_k(bad, k=5)
+except IndexError as e:
+    print("IndexError:", e, flush=True)
+again = srv.top_k(hist, k=5)
+torch.cuda.synchronize()
+print("same" if np.array_equal(top, again) else "differs", flush=True)
+"""
+
+
+def rec_bad_id_subprocess() -> str:
+    """Run REC_BAD_ID_SCRIPT; return its IndexError line, or raise."""
+    proc = subprocess.run(
+        [sys.executable, "-c", REC_BAD_ID_SCRIPT,
+         str(Path(__file__).resolve().parent / "src")],
+        capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 2 or lines[1] != "same" \
+            or not lines[0].startswith("IndexError"):
+        raise PhaseError(f"RecServer with an item id past the table: exit "
+                         f"{proc.returncode}, stdout {proc.stdout!r}, stderr "
+                         f"{proc.stderr[-2000:]!r}")
+    return lines[0]
+
+
 def phase_rec(seed: int, batch: int, n_cand: int,
               device: str = "cuda", cfg=None) -> dict:
     """SASRec (or ``cfg``) behind ``RecServer``: catalog top-10 for
@@ -1883,6 +2119,7 @@ def phase_rec(seed: int, batch: int, n_cand: int,
                          f"{err}, {same_sets}/{batch} equal top-10 sets)")
     if device == "cuda" and not launches:
         raise PhaseError("phase 5: embedding_bag was never launched")
+    print(f"rec: {rec_bad_id(srv, hist, top)}", flush=True)
     del srv, params
     return {"launches": launches, "top_k_ms": (t1 - t0) * 1e3,
             "score_ms": (t2 - t1) * 1e3, "score_err": err}

@@ -8,7 +8,9 @@ Each turn is a process of its own that imports ``chip_smoke.py`` from
 its checkout, builds that checkout's kernels and runs the two phases at
 chip_smoke's defaults, checks included.  The script prints the card line,
 each turn's host seconds (the card run of phase 3, its CPU twin, phase
-3b and phase 3b's own split) and, last, one JSON object of all turns.
+3b and phase 3b's own split), the card run's calls and seconds in each
+stamp-compare entry point (``chip_smoke.BoundaryClock``, read from
+``run_on``'s line) and, last, one JSON object of all turns.
 Compare a change with its parent by unpacking the parent beside it
 (``git archive``) into a directory that ``.gitignore`` lists.
 
@@ -29,6 +31,15 @@ from pathlib import Path
 SEED, USERS, N_PROG, N_TX, GNN_STEPS = 0, 100_000, 50, 300, 12
 TWIN = re.compile(r"^main device=cpu \(worker process, concurrent\): .* in "
                   r"([0-9.]+) s host wall clock")
+ENTRY = re.compile(r"(\w+) (\d+) calls ([0-9.]+) s(?: \(median ([0-9.]+) us\))?")
+
+
+def entry_points(line: str) -> dict:
+    """``run_on``'s entry-point line -> {name: calls, seconds, median µs
+    per call where the line has it}."""
+    return {name: {"calls": int(calls), "s": float(secs),
+                   "median_us": float(us) if us else None}
+            for name, calls, secs, us in ENTRY.findall(line)}
 
 
 def turn(root: Path) -> dict:
@@ -37,13 +48,14 @@ def turn(root: Path) -> dict:
     import torch
     import chip_smoke as cs
 
-    card = {}
+    card, entries = {}, {}
     run_on = cs.run_on
 
     def timed_run_on(device, *args):
         t0 = time.perf_counter()
         out = run_on(device, *args)
         card[device] = time.perf_counter() - t0
+        entries[device] = entry_points(out[4])
         return out
 
     cs.run_on = timed_run_on
@@ -55,6 +67,7 @@ def turn(root: Path) -> dict:
     gnn = cs.phase_gnn(w, SEED, GNN_STEPS)
     torch.cuda.synchronize()
     return {"root": str(root), "main_card_s": card["cuda"],
+            "main_entry_points": entries["cuda"],
             "gnn_s": time.perf_counter() - t0, "gnn_secs": gnn["secs"],
             "gnn_launches": dict(cs.smpk.launches)}
 
@@ -97,7 +110,8 @@ def main(argv=None) -> int:
         print(f"turn {label} {root.name}: phase 3 card {r['main_card_s']:.2f}"
               f" s (CPU twin {r['main_twin_s']} s), phase 3b "
               f"{r['gnn_s']:.2f} s {r['gnn_secs']}, launches "
-              f"{r['gnn_launches']}", flush=True)
+              f"{r['gnn_launches']}; phase 3 card entry points "
+              f"{json.dumps(r['main_entry_points'])}", flush=True)
     out = {"device": smi, "turns": turns}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

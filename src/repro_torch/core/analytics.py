@@ -153,11 +153,9 @@ def to_device(a: np.ndarray, device: str) -> torch.Tensor:
 def _before_batch(rows: np.ndarray, q: np.ndarray,
                   device: str) -> np.ndarray:
     """rows[i] ≺ q over an (N, C) int32 matrix -> (N,) bool, as ONE
-    ``before`` kernel launch on ``device``."""
-    if rows.shape[0] == 0:
-        return np.zeros((0,), bool)
-    mask = mv_ops.before_mask(to_device(rows, device), to_device(q, device))
-    return mask.cpu().numpy()
+    ``before`` kernel launch on ``device`` in one host round trip
+    (``mv_ops.before_host``)."""
+    return mv_ops.before_host(rows, q, device)
 
 
 def _sort_key(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -352,9 +350,10 @@ class SnapshotEngine:
         if pre is not None:
             cb = np.array(pre[0], dtype=bool)
             db = np.array(pre[1], dtype=bool)
-        else:
-            cb = _before_batch(create_rows, q, self.device)
-            db = _before_batch(delete_rows, q, self.device)
+        else:                   # one round trip for both row blocks
+            both = _before_batch(np.concatenate((create_rows, delete_rows)),
+                                 q, self.device)
+            cb, db = both[:create_rows.shape[0]], both[create_rows.shape[0]:]
         if refine and create_rows.shape[0]:
             for rows, arr, stamp_of in ((create_rows, cb, cstamp),
                                         (delete_rows, db, dstamp)):

@@ -63,7 +63,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..kernels.mv_visibility import ops as mv_ops
-from .analytics import to_device
 from .clock import NO_STAMP, Order, Stamp, compare, pack
 from .mvgraph import VidIntern, _GrowRows
 from .oracle import CycleError, TimelineOracle
@@ -141,12 +140,9 @@ def _np_before_pairs(rows: np.ndarray, qs: np.ndarray) -> np.ndarray:
 def before_pairs(rows: np.ndarray, qs: np.ndarray,
                  device: str = "cuda") -> np.ndarray:
     """Elementwise ``rows[i] ≺ qs[i]`` as ONE ``before_pairs`` kernel
-    launch on ``device`` (the ``mv_visibility`` compare generalized to a
-    per-row query stamp)."""
-    if rows.shape[0] == 0:
-        return np.zeros((0,), bool)
-    return mv_ops.before_pairs(to_device(rows, device),
-                               to_device(qs, device)).cpu().numpy()
+    launch on ``device`` in one host round trip (the ``mv_visibility``
+    compare generalized to a per-row query stamp)."""
+    return mv_ops.before_pairs_host(rows, qs, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) helpers shared by the attention kernels: mbarriers,
-// TMA tensor maps and loads, and the lookup of the function that encodes
-// a tensor map without linking libcuda.
+// Hopper (sm_90a) helpers shared by the attention kernels and the stamp
+// compares: mbarriers, bulk and TMA tensor loads, and the lookup of the
+// function that encodes a tensor map without linking libcuda.
 //
 // cuTensorMapEncodeTiled lives in libcuda; the port's libraries link
 // only the CUDA runtime (kernels/build.NVCC_FLAGS), so it is looked up
@@ -60,6 +60,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ------------------------------------------------------------ TMA loads
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Order this thread's generic-proxy accesses to shared memory before
+// later async-proxy (bulk copy) accesses.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {

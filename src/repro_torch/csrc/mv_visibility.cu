@@ -15,26 +15,73 @@
 // Layout: the rows are read as the host holds them, (N, C) row-major, with
 // no transpose and no padding to a block multiple (the TPU kernel wanted
 // component-major (C, N) padded to 1024).  Every kernel masks its own tail.
-// The query stamp q (or the per-row qs) is read from device memory.  The
-// output is torch.bool storage: exactly 0 or 1 per uint8.
 //
 // Bound: HBM bytes.  A pass reads N*C*4 bytes per stamp table (plus N*C*4
-// for qs) and writes N bytes, and does C integer compares per row; at C=3
-// that is ~0.25 ops per byte, far below the card's compute-to-bandwidth
-// ratio.  Design: one thread per row, a grid-stride loop with 64-bit
-// indices (N reaches ~69M rows), and a loop over C.  A warp's loads of
-// component j hit C*128 contiguous bytes, so DRAM traffic stays at one
-// read per byte while L1 absorbs the strided re-reads.  Left for later:
-// staging a block's rows through shared memory with 16-byte vector loads,
-// and packing the output as bits.
+// for qs) and writes N bytes (or N/8 in the bit form), and does C integer
+// compares per row; at C=3 that is ~0.25 ops per byte, far below the
+// card's compute-to-bandwidth ratio.  The data alone needs less: a row
+// whose epoch differs from the query's is decided by its epoch word.  But
+// in the row-major layout a row's clock words share its 32-byte sectors,
+// and the rows that tie the epoch are spread over the table, so nearly
+// every sector crosses HBM anyway: the whole table's bytes are the bound
+// this layout can reach.
+//
+// `before` and `before_pairs` (compare_kernel): a block of 8 warps owns a
+// block tile of 1,024 consecutive rows at a time, whose rows are contiguous,
+// 1024*C*4 bytes (a multiple of 16).  One thread moves the whole block tile
+// (and the tile of qs) into shared memory with one bulk copy (cp.async.bulk:
+// the TMA engine moves it in 16-byte granules, with no registers, and counts
+// its bytes on an mbarrier).  The block keeps a ring of 2 such slots, so
+// that the next block tile is on its way while its warps evaluate one, each
+// warp its own 128 rows.  Large copies matter on this card: with a warp-
+// sized 1.5 KB tile per copy, or with per-lane 16-byte cp.async copies into
+// a ring per warp, the same kernel read HBM more slowly than with 12 KB
+// block tiles.  Each lane evaluates rows lane + 32*j of its warp's 128 from
+// shared memory: with odd C (3, 9) the 32 lanes of one read hit 32 distinct
+// banks; an even C costs a gcd(C, 32)-way conflict on each word read (2-way
+// at C = 2, 8-way at C = 8).  The evaluation's instructions are of the order
+// of the copy's time at C = 3, so the row width is a template for C = 2..9
+// (1 to 8 gatekeepers): the loop over C unrolls and the shared query q stays
+// in registers; other widths read C at run time, with q in shared memory,
+// loaded once per block.  Each warp-wide predicate becomes one 32-bit word
+// by __ballot_sync, and the output is a template:
+//   bytes: one 0/1 byte per row (torch.bool storage); lane L stores rows
+//          4L..4L+3 of its warp's 128 as one 4-byte word;
+//   bits:  one uint32 per 32 rows, bit k = row k (least significant
+//          first: np.unpackbits(..., bitorder="little")), N/8 bytes.
+// The grid is persistent (as many blocks as fit on the card at once), the
+// blocks striding over block tiles with 64-bit indices.  The ragged last
+// block tile, and every tile of rows whose address is not 16-byte aligned
+// (a row view at an odd offset), are staged by the block with 4-byte loads
+// instead; the evaluation and the stores are the same.
+//
+// `visibility` is still the first design: one thread per row, a
+// grid-stride loop, a loop over C reading the rows from global memory.
+//
+// `mv_compare_host` is the host entries' round trip: one host-to-device
+// copy of the packed inputs, the bit-form compare, one device-to-host copy
+// of the bit words, all on one stream without synchronising.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int32_t kNoStamp = 0x7fffffff;
 constexpr int kThreads = 256;
+constexpr int kTile = 128;                 // rows a warp evaluates at a time
+constexpr int kPerLane = kTile / 32;       // rows a lane evaluates per tile
+constexpr int kMaxWarps = 8;               // warps of a block
+constexpr int kStages = 2;                 // block tiles in a block's ring
+constexpr size_t kBarBytes = kStages * 8;  // the ring's static mbarriers
+constexpr size_t kSmemSoft = 48 * 1024 - kBarBytes;  // without opting in
+constexpr size_t kSmemMax = 232448 - kBarBytes;      // a block's maximum
+constexpr int kMaxDevices = 16;            // devices whose launch shapes
+                                           // are remembered
+constexpr int kMaxC = 226;                 // widest row: one warp's tile of
+                                           // rows and of qs in kSmemMax
 
 __device__ __forceinline__ bool before_row(const int32_t* __restrict__ row,
                                            const int32_t* __restrict__ q,
@@ -55,17 +102,6 @@ __device__ __forceinline__ bool before_row(const int32_t* __restrict__ row,
   return le && !eq;
 }
 
-__global__ void before_kernel(const int32_t* __restrict__ rows,
-                              const int32_t* __restrict__ q,
-                              uint8_t* __restrict__ out, int64_t n, int c) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    out[i] = before_row(rows + i * c, q, c) ? 1 : 0;
-  }
-}
-
 __global__ void visibility_kernel(const int32_t* __restrict__ create,
                                   const int32_t* __restrict__ del,
                                   const int32_t* __restrict__ q,
@@ -81,18 +117,6 @@ __global__ void visibility_kernel(const int32_t* __restrict__ create,
   }
 }
 
-__global__ void before_pairs_kernel(const int32_t* __restrict__ rows,
-                                    const int32_t* __restrict__ qs,
-                                    uint8_t* __restrict__ out, int64_t n,
-                                    int c) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    out[i] = before_row(rows + i * c, qs + i * c, c) ? 1 : 0;
-  }
-}
-
 // Enough blocks to cover n once, capped so the grid-stride loop takes over
 // for very large n (132 SMs x 16 resident 256-thread blocks x 8 waves).
 unsigned int grid_for(int64_t n) {
@@ -101,17 +125,279 @@ unsigned int grid_for(int64_t n) {
   return static_cast<unsigned int>(want < cap ? want : cap);
 }
 
+__host__ __device__ __forceinline__ int round4(int64_t x) {
+  return static_cast<int>((x + 3) & ~int64_t{3});
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// dst[0..words) = src[0..words) by the block with 4-byte loads: the ragged
+// last block tile, and every tile of rows whose address is not 16-byte
+// aligned.
+__device__ __forceinline__ void load_words(int32_t* dst,
+                                           const int32_t* __restrict__ src,
+                                           int words) {
+  for (int k = threadIdx.x; k < words; k += blockDim.x) dst[k] = __ldg(src + k);
+}
+
+// row ≺ q for a row in shared memory and a query in shared memory or in
+// registers; kC > 0 is the row width known when compiled, 0 reads c.
+template <int kC>
+__device__ __forceinline__ bool staged_before(const int32_t* row,
+                                              const int32_t* q, int c) {
+  const int w = kC > 0 ? kC : c;
+  const int32_t e = row[0];
+  const int32_t qe = q[0];
+  bool le = true;
+  bool eq = true;
+#pragma unroll
+  for (int j = 1; j < w; ++j) {
+    le &= row[j] <= q[j];
+    eq &= row[j] == q[j];
+  }
+  return e != kNoStamp && (e < qe || (e == qe && le && !eq));
+}
+
+// word[i] without indexing registers by a runtime value.
+__device__ __forceinline__ uint32_t pick(const uint32_t (&word)[kPerLane],
+                                         int i) {
+  uint32_t w = word[0];
+#pragma unroll
+  for (int j = 1; j < kPerLane; ++j)
+    if (i == j) w = word[j];
+  return w;
+}
+
+// Tile t's ballot words (bit k of word j = row 32j + k of the tile) to the
+// output; `rem` rows of the tile exist.
+template <bool kBits>
+__device__ __forceinline__ void store_tile(void* __restrict__ out, int64_t t,
+                                           int rem,
+                                           const uint32_t (&word)[kPerLane],
+                                           int lane) {
+  if (kBits) {
+    uint32_t* o = static_cast<uint32_t*>(out) + t * kPerLane;
+    const uint32_t w = pick(word, lane);
+    if (lane < (rem + 31) / 32) o[lane] = w;
+  } else {                      // lane L: rows 128h + 4L .. 128h + 4L + 3
+#pragma unroll
+    for (int h = 0; h < kTile / 128; ++h) {
+      uint8_t* o = static_cast<uint8_t*>(out) + t * kTile + 128 * h;
+      const int left = rem - 128 * h;
+      const uint32_t x = pick(word, 4 * h + (lane >> 3)) >> ((lane & 7) * 4);
+      const uint32_t b4 = (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) |
+                          ((x & 8u) << 21);
+      if (left >= 128) {
+        reinterpret_cast<uint32_t*>(o)[lane] = b4;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * lane + k < left) o[4 * lane + k] = (b4 >> (8 * k)) & 1u;
+      }
+    }
+  }
+}
+
+// rows[i] ≺ q (kPairs false: q is one (C,) stamp) or rows[i] ≺ q[i]
+// (kPairs: q is (N, C) like rows), to bytes or bits (kBits); kC > 0 is the
+// width C known when compiled, 0 reads c.  A block owns a block tile of
+// warps * kTile rows at a time and keeps a ring of `stages` block tiles in
+// shared memory, each slot with its own mbarrier: one thread starts the
+// bulk copy of a later block tile while the block's warps evaluate the
+// oldest, each warp its own kTile rows.
+template <bool kPairs, bool kBits, int kC>
+__global__ void __launch_bounds__(kThreads)
+compare_kernel(const int32_t* __restrict__ rows,
+               const int32_t* __restrict__ q, void* __restrict__ out,
+               int64_t n, int c_arg, int stages) {
+  extern __shared__ __align__(16) int32_t smem[];
+  __shared__ uint64_t bar[kStages];
+  const int c = kC > 0 ? kC : c_arg;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int block_rows = warps * kTile;
+  const int block_words = block_rows * c;
+  const int slot_words = block_words * (kPairs ? 2 : 1);
+  int32_t* ring = smem + (kPairs ? 0 : round4(c));
+  if (!kPairs)
+    for (int k = threadIdx.x; k < c; k += blockDim.x) smem[k] = __ldg(q + k);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) hopper::mbar_init(bar + s, 1);
+  hopper::mbar_init_fence();
+  __syncthreads();
+  int32_t q_reg[kC > 0 ? kC : 1];       // the shared query, kC > 0 only
+  if (kC > 0 && !kPairs) {
+#pragma unroll
+    for (int j = 0; j < (kC > 0 ? kC : 1); ++j) q_reg[j] = smem[j];
+  }
+  const bool vec = aligned16(rows) && (!kPairs || aligned16(q));
+  const int64_t tiles = (n + block_rows - 1) / block_rows;
+  const int64_t step = gridDim.x;
+  auto rows_in = [&](int64_t t) {
+    const int64_t left = n - t * block_rows;
+    return left < block_rows ? static_cast<int>(left) : block_rows;
+  };
+  // Slot `slot` takes block tile t: its bulk copy when the tile is whole
+  // and aligned, else a bare arrival (the block stages it itself when it
+  // comes to it, as it does for tiles past the end, which it never
+  // reaches).  Thread 0 only.
+  auto issue = [&](int64_t t, int slot) {
+    if (threadIdx.x != 0) return;
+    if (t < tiles && vec && rows_in(t) == block_rows) {
+      const uint32_t bytes = block_words * 4;
+      int32_t* dst = ring + slot * slot_words;
+      hopper::mbar_expect_tx(bar + slot, kPairs ? 2 * bytes : bytes);
+      hopper::bulk_load(dst, rows + t * block_words, bytes, bar + slot);
+      if (kPairs)
+        hopper::bulk_load(dst + block_words, q + t * block_words, bytes,
+                          bar + slot);
+    } else {
+      hopper::mbar_arrive(bar + slot);
+    }
+  };
+  int64_t t = blockIdx.x;
+  for (int s = 0; s < stages - 1; ++s) issue(t + s * step, s);
+  uint32_t parity = 0;                  // bit s: the phase slot s waits for
+  for (int slot = 0; t < tiles;
+       t += step, slot = slot + 1 == stages ? 0 : slot + 1) {
+    issue(t + (stages - 1) * step, slot == 0 ? stages - 1 : slot - 1);
+    hopper::mbar_wait(bar + slot, (parity >> slot) & 1u);
+    parity ^= 1u << slot;
+    const int rem_block = rows_in(t);
+    int32_t* s_rows = ring + slot * slot_words;
+    if (!(vec && rem_block == block_rows)) {
+      load_words(s_rows, rows + t * block_words, rem_block * c);
+      if (kPairs)
+        load_words(s_rows + block_words, q + t * block_words, rem_block * c);
+      hopper::fence_proxy_async();      // before a bulk copy reuses the slot
+      __syncthreads();
+    }
+    const int left = rem_block - warp * kTile;
+    if (left > 0) {                     // this warp's kTile rows
+      const int rem = left < kTile ? left : kTile;
+      const int32_t* w_rows = s_rows + warp * kTile * c;
+      uint32_t word[kPerLane];
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const int r = lane + 32 * j;
+        const int32_t* qr = kPairs ? w_rows + block_words + r * c
+                                   : (kC > 0 ? q_reg : smem);
+        const bool p = r < rem && staged_before<kC>(w_rows + r * c, qr, c);
+        word[j] = __ballot_sync(0xffffffffu, p);
+      }
+      store_tile<kBits>(out, t * warps + warp, rem, word, lane);
+    }
+    __syncthreads();              // the slot is read before it is reused
+  }
+}
+
+int sm_count(int dev) {
+  static int cache[kMaxDevices] = {};
+  int sms = dev >= 0 && dev < kMaxDevices ? cache[dev] : 0;
+  if (sms == 0) {
+    if (dev < 0 || cudaDeviceGetAttribute(
+                       &sms, cudaDevAttrMultiProcessorCount, dev) !=
+                       cudaSuccess || sms <= 0)
+      sms = 132;
+    if (dev >= 0 && dev < kMaxDevices) cache[dev] = sms;
+  }
+  return sms;
+}
+
+// Launch compare_kernel<kPairs, kBits, kC>: blocks of 8 warps with a ring
+// of kStages block tiles (fewer warps, then one stage, for rows too wide
+// to fit 227 KB of shared memory); as many blocks as are resident on the
+// card at once, or fewer for small n.
+template <bool kPairs, bool kBits, int kC>
+int launch_compare(const int32_t* rows, const int32_t* q, void* out,
+                   int64_t n, int c, cudaStream_t stream) {
+  if (c < 1 || c > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = compare_kernel<kPairs, kBits, kC>;
+  const size_t warp_tile = size_t{kTile} * c * 4 * (kPairs ? 2 : 1);
+  const size_t q_bytes = kPairs ? 0 : size_t{4} * round4(c);
+  int warps = kMaxWarps;
+  int stages = kStages;
+  while (q_bytes + size_t{1} * stages * warps * warp_tile > kSmemMax) {
+    if (warps > 1) warps /= 2;
+    else if (stages > 1) --stages;
+    else return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = q_bytes + size_t{1} * stages * warps * warp_tile;
+  // blocks per SM, by device and C, found at the first launch on each
+  static int cached[kMaxDevices][kMaxC + 1] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = -1;
+  int local = 0;
+  int& resident = dev >= 0 && dev < kMaxDevices ? cached[dev][c] : local;
+  if (resident == 0) {
+    if (smem > kSmemSoft) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, warps * 32, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = per_sm > 0 ? per_sm : 1;
+  }
+  const int64_t block_rows = int64_t{warps} * kTile;
+  const int64_t want = (n + block_rows - 1) / block_rows;
+  const int64_t cap = static_cast<int64_t>(sm_count(dev)) * resident;
+  const unsigned int grid =
+      static_cast<unsigned int>(want < cap ? want : cap);
+  kernel<<<grid, warps * 32, smem, stream>>>(rows, q, out, n, c, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel compiled for the row width c when it is a common one (1 to 8
+// gatekeepers), else the one that reads c.
+template <bool kPairs, bool kBits>
+int launch_width(const int32_t* rows, const int32_t* q, void* out, int64_t n,
+                 int c, cudaStream_t s) {
+  switch (c) {
+    case 2: return launch_compare<kPairs, kBits, 2>(rows, q, out, n, c, s);
+    case 3: return launch_compare<kPairs, kBits, 3>(rows, q, out, n, c, s);
+    case 4: return launch_compare<kPairs, kBits, 4>(rows, q, out, n, c, s);
+    case 5: return launch_compare<kPairs, kBits, 5>(rows, q, out, n, c, s);
+    case 6: return launch_compare<kPairs, kBits, 6>(rows, q, out, n, c, s);
+    case 7: return launch_compare<kPairs, kBits, 7>(rows, q, out, n, c, s);
+    case 8: return launch_compare<kPairs, kBits, 8>(rows, q, out, n, c, s);
+    case 9: return launch_compare<kPairs, kBits, 9>(rows, q, out, n, c, s);
+    default: return launch_compare<kPairs, kBits, 0>(rows, q, out, n, c, s);
+  }
+}
+
+template <bool kPairs>
+int launch_form(const int32_t* rows, const int32_t* q, void* out, int64_t n,
+                int c, int bits, cudaStream_t stream) {
+  return bits ? launch_width<kPairs, true>(rows, q, out, n, c, stream)
+              : launch_width<kPairs, false>(rows, q, out, n, c, stream);
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each function launches on the
-// given stream, does not synchronise, and returns cudaGetLastError() so
-// that a refused launch is reported to the caller.  n must be > 0.
+// given stream, does not synchronise, and returns the first CUDA error
+// (cudaGetLastError() after the launch), so that a refused launch is
+// reported to the caller.  n must be > 0; out is 4-byte aligned; bits
+// selects the output form (0: one byte per row, 1: one uint32 per 32 rows).
 
-extern "C" int mv_before(const int32_t* rows, const int32_t* q, uint8_t* out,
-                         int64_t n, int32_t c, void* stream) {
-  before_kernel<<<grid_for(n), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(rows, q, out, n, c);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int mv_before(const int32_t* rows, const int32_t* q, void* out,
+                         int64_t n, int32_t c, int32_t bits, void* stream) {
+  return launch_form<false>(rows, q, out, n, c, bits,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mv_before_pairs(const int32_t* rows, const int32_t* qs,
+                               void* out, int64_t n, int32_t c, int32_t bits,
+                               void* stream) {
+  return launch_form<true>(rows, qs, out, n, c, bits,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mv_visibility(const int32_t* create, const int32_t* del,
@@ -123,11 +409,24 @@ extern "C" int mv_visibility(const int32_t* create, const int32_t* del,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mv_before_pairs(const int32_t* rows, const int32_t* qs,
-                               uint8_t* out, int64_t n, int32_t c,
-                               void* stream) {
-  before_pairs_kernel<<<grid_for(n), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(rows, qs, out,
-                                                             n, c);
-  return static_cast<int>(cudaGetLastError());
+// One host call's round trip on `stream`: copy in_bytes from pinned
+// host_in to dev_in (which holds rows and q at the given device pointers),
+// run the bit-form compare (pairs: before_pairs, else before) into
+// dev_bits, and copy its ceil(n / 32) words to pinned host_bits.  The
+// caller waits on the stream before it reads host_bits.
+extern "C" int mv_compare_host(const void* host_in, void* dev_in,
+                               int64_t in_bytes, const int32_t* rows,
+                               const int32_t* q, uint32_t* dev_bits,
+                               uint32_t* host_bits, int64_t n, int32_t c,
+                               int32_t pairs, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemcpyAsync(dev_in, host_in, in_bytes,
+                                    cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = pairs ? launch_form<true>(rows, q, dev_bits, n, c, 1, s)
+                       : launch_form<false>(rows, q, dev_bits, n, c, 1, s);
+  if (rc != 0) return rc;
+  err = cudaMemcpyAsync(host_bits, dev_bits, ((n + 31) / 32) * 4,
+                        cudaMemcpyDeviceToHost, s);
+  return static_cast<int>(err);
 }

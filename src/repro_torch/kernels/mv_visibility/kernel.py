@@ -2,12 +2,29 @@
 
 The sources are ``src/repro_torch/csrc/mv_visibility.cu`` (``before``,
 ``visibility``, ``before_pairs``), built for ``sm_90a`` at first use and
-bound with ``ctypes`` (see :mod:`repro_torch.kernels.build`).  Every
-wrapper here takes CUDA tensors only, checks them, allocates its output
-with ``torch.empty`` and launches on the current stream without
-synchronising.  ``launches`` counts each kernel's launches (one per
-launch, nowhere else), so a run can show which kernels its path went
-through.
+bound with ``ctypes`` (see :mod:`repro_torch.kernels.build`).
+
+Two kinds of entry:
+
+* Device-facing (:func:`before`, :func:`visibility`, :func:`before_pairs`):
+  CUDA tensors in, a CUDA tensor out.  Each checks its tensors, allocates
+  its output with ``torch.empty`` and launches on the current stream
+  without synchronising.  ``before`` and ``before_pairs`` return one bool
+  per row, or with ``bits=True`` one int32 word per 32 rows (bit k of the
+  stream is row k, least significant bit first).
+* Host-facing (:func:`before_host`, :func:`before_pairs_host`): numpy
+  stamp rows in, a numpy bool mask out, in one round trip: the inputs are
+  packed into a pinned host buffer, copied to the card in one
+  asynchronous copy, compared by one launch of the bit form, the bit
+  words copied back in one asynchronous copy, and the stream waited on
+  once.  The buffers (:class:`Staging`, one per device) grow by doubling
+  and are kept between calls, so a warm call allocates nothing.  They
+  belong to the one thread that drives a deployment: two threads calling
+  a host entry on one device at once would share them.  (A CPU twin of a
+  deployment runs in another process, with its own.)
+
+``launches`` counts each kernel's launches (one per launch, nowhere
+else), so a run can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -15,20 +32,27 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 from .. import build
 
 SOURCE = "mv_visibility"
+#: widest stamp row the kernels take (one warp's tiles of rows and query
+#: rows fill a block's 227 KB of shared memory)
+MAX_C = 226
 
 #: launches per kernel since :func:`reset_launches`
 launches: Dict[str, int] = {"before": 0, "visibility": 0, "before_pairs": 0}
 
 _P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
 _ARGTYPES = {
-    "mv_before": [_P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P],
-    "mv_visibility": [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P],
-    "mv_before_pairs": [_P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P],
+    "mv_before": [_P, _P, _P, _I64, _I32, _I32, _P],
+    "mv_visibility": [_P, _P, _P, _P, _I64, _I32, _P],
+    "mv_before_pairs": [_P, _P, _P, _I64, _I32, _I32, _P],
+    "mv_compare_host": [_P, _P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _P],
 }
 _bound = None
 
@@ -38,14 +62,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _lib():
+def bind(lib: ctypes.CDLL) -> None:
+    """Use ``lib`` (a build of ``csrc/mv_visibility.cu``) for the kernels."""
     global _bound
+    for fn, args in _ARGTYPES.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    _bound = lib
+
+
+def _lib():
     if _bound is None:
-        lib = build.load(SOURCE)
-        for fn, args in _ARGTYPES.items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-        _bound = lib
+        bind(build.load(SOURCE))
     return _bound
 
 
@@ -74,39 +102,181 @@ def check(tables: Sequence[torch.Tensor], q: torch.Tensor,
         raise ValueError(f"query stamp shape {tuple(q.shape)}, want {want}")
 
 
+def check_host(rows: np.ndarray, q: np.ndarray, per_row: bool) -> None:
+    """Raise unless ``rows`` is an (N, C) integer array and ``q`` an
+    integer ``(C,)`` stamp (or ``(N, C)`` rows when ``per_row``)."""
+    for a in (rows, q):
+        if not isinstance(a, np.ndarray):
+            raise TypeError(f"expected a numpy array, got {type(a)}")
+        if not np.issubdtype(a.dtype, np.integer):
+            raise TypeError(f"stamp rows must be integers, got {a.dtype}")
+    if rows.ndim != 2 or rows.shape[1] < 1:
+        raise ValueError(f"stamp rows must be (N, C), got {rows.shape}")
+    want = rows.shape if per_row else (rows.shape[1],)
+    if q.shape != want:
+        raise ValueError(f"query stamp shape {q.shape}, want {want}")
+
+
+def _check_width(c: int) -> None:
+    if c > MAX_C:
+        raise ValueError(f"stamp rows of width {c} > {MAX_C}: wider than "
+                         f"the kernels stage")
+
+
 def _launch(name: str, fn: str, tables: Sequence[torch.Tensor],
-            q: torch.Tensor, per_row: bool) -> torch.Tensor:
+            q: torch.Tensor, per_row: bool, *form) -> torch.Tensor:
+    """Launch ``fn`` into a new output; ``form`` is the bit-form flag of
+    the kernels that have one (empty for ``visibility``)."""
     check(tables, q, per_row)
     dev = tables[0].device
     if dev.type != "cuda":
         raise ValueError(f"the {name} kernel takes CUDA tensors, got {dev}")
     n, c = tables[0].shape
-    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    _check_width(c)
+    bits = bool(form and form[0])
+    out = (torch.empty(((n + 31) // 32,), dtype=torch.int32, device=dev)
+           if bits else torch.empty((n,), dtype=torch.bool, device=dev))
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_lib(), fn)(*(t.data_ptr() for t in tables),
-                                 q.data_ptr(), out.data_ptr(), n, c, stream)
+    rc = build.launch_on(tables[0], getattr(_lib(), fn),
+                         *(t.data_ptr() for t in tables), q.data_ptr(),
+                         out.data_ptr(), n, c, *(int(f) for f in form))
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed with CUDA error {rc}")
     launches[name] += 1
     return out
 
 
-def before(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``rows[i] ≺ q``: (N, C) int32, q (C,) int32 -> (N,) bool."""
-    return _launch("before", "mv_before", (rows,), q, per_row=False)
+def before(rows: torch.Tensor, q: torch.Tensor,
+           bits: bool = False) -> torch.Tensor:
+    """``rows[i] ≺ q``: (N, C) int32, q (C,) int32 -> (N,) bool, or with
+    ``bits`` (ceil(N / 32),) int32 words."""
+    return _launch("before", "mv_before", (rows,), q, False, bits)
 
 
 def visibility(create: torch.Tensor, delete: torch.Tensor,
                q: torch.Tensor) -> torch.Tensor:
     """``create ≺ q and not delete ≺ q`` -> (N,) bool."""
     return _launch("visibility", "mv_visibility", (create, delete), q,
-                   per_row=False)
+                   False)
 
 
-def before_pairs(rows: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
-    """``rows[i] ≺ qs[i]``: two (N, C) int32 tensors -> (N,) bool."""
-    return _launch("before_pairs", "mv_before_pairs", (rows,), qs,
-                   per_row=True)
+def before_pairs(rows: torch.Tensor, qs: torch.Tensor,
+                 bits: bool = False) -> torch.Tensor:
+    """``rows[i] ≺ qs[i]``: two (N, C) int32 tensors -> (N,) bool, or with
+    ``bits`` (ceil(N / 32),) int32 words."""
+    return _launch("before_pairs", "mv_before_pairs", (rows,), qs, True,
+                   bits)
+
+
+# ---------------------------------------------------------------------------
+# Host-facing entries: one round trip per call
+# ---------------------------------------------------------------------------
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+class Staging:
+    """One device's buffers for the host entries: a pinned host buffer
+    (the packed inputs, then the returned bit words), the device input
+    buffer and the device bit buffer, each grown by doubling and kept."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host = torch.empty((0,), dtype=torch.int32)
+        self.host_np = self.host.numpy()
+        self.dev_in = torch.empty((0,), dtype=torch.int32, device=device)
+        self.dev_bits = torch.empty((0,), dtype=torch.int32, device=device)
+
+    @staticmethod
+    def _grown(have: int, need: int) -> int:
+        return max(need, 2 * have, 1024)
+
+    def reserve(self, in_words: int, bit_words: int) -> None:
+        host_words = _round4(in_words) + bit_words
+        if host_words > self.host.numel():
+            self.host = torch.empty(
+                (self._grown(self.host.numel(), host_words),),
+                dtype=torch.int32, pin_memory=True)
+            self.host_np = self.host.numpy()
+        if in_words > self.dev_in.numel():
+            self.dev_in = torch.empty(
+                (self._grown(self.dev_in.numel(), in_words),),
+                dtype=torch.int32, device=self.device)
+        if bit_words > self.dev_bits.numel():
+            self.dev_bits = torch.empty(
+                (self._grown(self.dev_bits.numel(), bit_words),),
+                dtype=torch.int32, device=self.device)
+
+
+_staging: Dict[int, Staging] = {}
+
+
+def staging(device) -> Staging:
+    """The host entries' buffers on ``device`` (made at first use)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the stamp-compare kernels run on a CUDA device, "
+                         f"got {dev}")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    st = _staging.get(idx)
+    if st is None:
+        st = _staging[idx] = Staging(torch.device("cuda", idx))
+    return st
+
+
+def free_staging() -> None:
+    """Drop every device's host-entry buffers (they are made again, at
+    the size the next call needs, by the next call)."""
+    _staging.clear()
+
+
+def _host_round_trip(name: str, rows: np.ndarray, q: np.ndarray,
+                     per_row: bool, device) -> np.ndarray:
+    check_host(rows, q, per_row)
+    n, c = rows.shape
+    st = staging(device)
+    if n == 0:
+        return np.zeros((0,), bool)
+    _check_width(c)
+    nc = n * c
+    # packed inputs, each region 16-byte aligned: [q | rows] or [rows | qs]
+    rows_off = 0 if per_row else _round4(c)
+    q_off = _round4(nc) if per_row else 0
+    in_words = (q_off + nc) if per_row else (rows_off + nc)
+    bit_words = (n + 31) // 32
+    st.reserve(in_words, bit_words)
+    buf = st.host_np
+    np.copyto(buf[rows_off:rows_off + nc].reshape(n, c), rows,
+              casting="unsafe")
+    np.copyto(buf[q_off:q_off + q.size].reshape(q.shape), q,
+              casting="unsafe")
+    bits_off = _round4(in_words)
+    dev_in = st.dev_in.data_ptr()
+    rc = build.launch_on(
+        st.dev_in, _lib().mv_compare_host, st.host.data_ptr(), dev_in,
+        in_words * 4, dev_in + rows_off * 4, dev_in + q_off * 4,
+        st.dev_bits.data_ptr(), st.host.data_ptr() + bits_off * 4, n, c,
+        int(per_row))
+    if rc != 0:
+        raise RuntimeError(f"mv_compare_host ({name}) failed with CUDA "
+                           f"error {rc}")
+    launches[name] += 1
+    torch.cuda.current_stream(st.device).synchronize()
+    words = buf[bits_off:bits_off + bit_words].view(np.uint8)
+    return np.unpackbits(words, count=n, bitorder="little").view(bool)
+
+
+def before_host(rows: np.ndarray, q: np.ndarray,
+                device="cuda") -> np.ndarray:
+    """``rows[i] ≺ q`` on the card from host arrays: (N, C) integer rows,
+    (C,) q -> (N,) numpy bool, in one round trip (see the module note)."""
+    return _host_round_trip("before", rows, q, False, device)
+
+
+def before_pairs_host(rows: np.ndarray, qs: np.ndarray,
+                      device="cuda") -> np.ndarray:
+    """``rows[i] ≺ qs[i]`` on the card from two (N, C) host arrays ->
+    (N,) numpy bool, in one round trip (see the module note)."""
+    return _host_round_trip("before_pairs", rows, qs, True, device)

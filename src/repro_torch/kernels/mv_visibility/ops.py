@@ -5,10 +5,16 @@ They take the ``(N, C)`` row-major int32 layout that
 CUDA tensor goes to the CUDA kernel (which launches or raises); a CPU
 tensor goes to the plain PyTorch version in :mod:`.ref`.  Nothing else
 chooses the route: the caller picks it by where its tensors live.
+
+The host entries (:func:`before_host`, :func:`before_pairs_host`) take
+numpy rows and return a numpy mask; the caller's ``device`` string picks
+the route: ``"cpu"`` runs the plain version, a CUDA device the kernel's
+one-round-trip host entry (``kernel.before_host``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import kernel, ref
@@ -42,3 +48,27 @@ def before_pairs(rows: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
         kernel.check((rows,), qs, per_row=True)
         return ref.before_pairs(rows, qs)
     return kernel.before_pairs(rows, qs)
+
+
+def _plain_host(plain, rows: np.ndarray, q: np.ndarray,
+                per_row: bool) -> np.ndarray:
+    kernel.check_host(rows, q, per_row)
+    return plain(torch.from_numpy(np.ascontiguousarray(rows, np.int32)),
+                 torch.from_numpy(np.ascontiguousarray(q, np.int32))).numpy()
+
+
+def before_host(rows: np.ndarray, q: np.ndarray, device: str) -> np.ndarray:
+    """(N, C) host stamp rows + (C,) query -> (N,) numpy bool ``row ≺ q``
+    on ``device``."""
+    if torch.device(device).type == "cpu":
+        return _plain_host(ref.before, rows, q, per_row=False)
+    return kernel.before_host(rows, q, device)
+
+
+def before_pairs_host(rows: np.ndarray, qs: np.ndarray,
+                      device: str) -> np.ndarray:
+    """(N, C) host rows + (N, C) per-row queries -> (N,) numpy bool
+    ``rows[i] ≺ qs[i]`` on ``device``."""
+    if torch.device(device).type == "cpu":
+        return _plain_host(ref.before_pairs, rows, qs, per_row=True)
+    return kernel.before_pairs_host(rows, qs, device)

@@ -35,3 +35,18 @@ def visibility(create: torch.Tensor, delete: torch.Tensor,
                q: torch.Tensor) -> torch.Tensor:
     """create/delete (N, C) int32, q (C,) int32 -> (N,) bool."""
     return before(create, q) & ~before(delete, q)
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(N,) bool -> (ceil(N / 32),) int32 words, bit k of the stream = row
+    k, least significant bit first (the kernels' bit form; the bytes of
+    the words are ``np.packbits(mask, bitorder="little")``, zero-padded)."""
+    n = mask.shape[0]
+    words = (n + 31) // 32
+    padded = torch.zeros((words * 32,), dtype=torch.int64,
+                         device=mask.device)
+    padded[:n] = mask.to(torch.int64)
+    weights = torch.ones((32,), dtype=torch.int64, device=mask.device)
+    weights = weights << torch.arange(32, device=mask.device)
+    w = (padded.view(words, 32) * weights).sum(dim=1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)

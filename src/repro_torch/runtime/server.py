@@ -89,20 +89,43 @@ class LMServer:
 
 
 class RecServer:
+    """SASRec serving: catalog top-k and candidate scores.
+
+    Item ids given as a numpy array or a CPU tensor are checked on the
+    host before they are uploaded: an id outside ``[0, table rows)``
+    raises ``IndexError`` and the server stays usable.  Ids given as a
+    CUDA tensor go to the kernel unchecked (checking them would read the
+    card); the embedding_bag kernel traps on one past the table, which
+    ends the process's CUDA context.
+    """
+
     def __init__(self, params, cfg: sasrec.SASRecConfig, device="cuda"):
         check_device(device)
         self.device = torch.device(device)
         self.params = _to(params, self.device)
         self.cfg = cfg
 
+    def _items(self, a) -> torch.Tensor:
+        """Item ids as int64 on the server's device, range-checked on the
+        host unless they already lie on a CUDA device."""
+        if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+            return a.to(self.device).long()
+        host = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        rows = self.params["item_emb"].shape[0]
+        if host.size:
+            lo, hi = host.min(), host.max()
+            if lo < 0 or hi >= rows:
+                raise IndexError(f"item id {lo if lo < 0 else hi} outside "
+                                 f"[0, {rows}), the item table's rows")
+        return _ids(self.device, host)
+
     def top_k(self, hist: np.ndarray, k: int = 10) -> np.ndarray:
-        scores = sasrec.score_catalog(self.params, _ids(self.device, hist),
+        scores = sasrec.score_catalog(self.params, self._items(hist),
                                       self.cfg)
         _, idx = torch.topk(scores, k)
         return idx.cpu().numpy()
 
     def score(self, hist: np.ndarray, candidates: np.ndarray) -> np.ndarray:
         return sasrec.score_candidates(
-            self.params, _ids(self.device, hist),
-            _ids(self.device, candidates),
+            self.params, self._items(hist), self._items(candidates),
             self.cfg).cpu().numpy()

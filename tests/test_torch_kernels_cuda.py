@@ -63,6 +63,67 @@ def test_cuda_kernels_match_plain():
     kernel.reset_launches()
 
 
+def test_stamp_compare_forms_and_host_entries_match_plain():
+    """Card only: before / before_pairs in both output forms (bytes, and
+    bit words against ref.pack_bits), both host entries and visibility
+    == their plain versions at chip_smoke's cases (C in (3, 9), N in
+    STAMP_NS and 100,000, views whose address is not 16-byte aligned,
+    and C = 17 and 40); each form and entry is one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cs = smoke()
+    kernel.reset_launches()
+    n_cases = 0
+    for (n, c, off), _, checks in cs.stamp_edge_cases(0, "cuda", 100_000):
+        assert not any(checks.values()), f"N={n} C={c} offset {off}: {checks}"
+        n_cases += 1
+    assert kernel.launches == {"before": 3 * n_cases, "visibility": n_cases,
+                               "before_pairs": 3 * n_cases}
+    assert kernel.before_host(np.zeros((0, 3), np.int32),
+                              np.zeros(3, np.int32)).shape == (0,)
+    assert kernel.launches["before"] == 3 * n_cases          # no launch
+    kernel.reset_launches()
+
+
+def test_host_entries_allocate_nothing_when_warm():
+    """Card only: once its buffers have grown, a host entry's call (one
+    H2D copy, one launch, one D2H copy, one wait) makes no CUDA
+    allocation: 100 warm calls of each leave
+    memory_stats()["allocation.all.allocated"] unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    rows, _, q, qs = case(1024, 3, 5)
+    want_b = ref.before(torch.from_numpy(rows), torch.from_numpy(q)).numpy()
+    want_p = ref.before_pairs(torch.from_numpy(rows),
+                              torch.from_numpy(qs)).numpy()
+    for _ in range(3):
+        kernel.before_host(rows, q)
+        kernel.before_pairs_host(rows, qs)
+    torch.cuda.synchronize()
+    kernel.reset_launches()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for i in range(100):
+        m = i % 1024 + 1                        # smaller calls fit too
+        np.testing.assert_array_equal(kernel.before_host(rows[:m], q),
+                                      want_b[:m])
+        np.testing.assert_array_equal(
+            kernel.before_pairs_host(rows[:m], qs[:m]), want_p[:m])
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+    assert kernel.launches == {"before": 100, "visibility": 0,
+                               "before_pairs": 100}
+    kernel.reset_launches()
+
+
+def test_rec_server_bad_item_id_raises_and_context_lives():
+    """Card only: an item id past SASRec's table raises IndexError on
+    the host before any upload, and the same server then answers a good
+    top_k as before (in a subprocess, so that a regression that reaches
+    the bag kernel's trap cannot end this process's CUDA context)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the server runs on the card")
+    assert "outside" in smoke().rec_bad_id_subprocess()
+
+
 def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     assert build.sources() == ["embedding_bag", "flash_attention",
                                "flash_attention_tc", "flash_decode",

@@ -173,3 +173,88 @@ def test_plain_versions_agree_with_each_other():
     np.testing.assert_array_equal(
         ref.visibility(T(create), T(delete), T(q)).numpy(),
         (b & ~ref.before(T(delete), T(q))).numpy())
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1023, 1025])
+def test_pack_bits_matches_numpy_packbits(n):
+    """ref.pack_bits (the plain twin of the kernels' bit form) gives the
+    bytes of np.packbits(bitorder="little"), zero-padded to whole words."""
+    mask = np.random.default_rng(n).random(n) < 0.4
+    got = ref.pack_bits(T(mask))
+    assert got.dtype == torch.int32 and got.shape == ((n + 31) // 32,)
+    want = np.packbits(mask, bitorder="little")
+    want = np.pad(want, (0, -want.size % 4))
+    np.testing.assert_array_equal(got.numpy().view(np.uint8), want)
+    np.testing.assert_array_equal(
+        np.unpackbits(got.numpy().view(np.uint8), count=n,
+                      bitorder="little").view(bool), mask)
+
+
+def _pallas_before(rows, q, block=128):
+    """The reference's before_pallas in interpret mode over (N, C) rows,
+    padded with NO_STAMP rows to whole blocks (N = 0 takes one block)."""
+    n = rows.shape[0]
+    n_pad = max(1, -(-n // block)) * block
+    padded = np.pad(rows, ((0, n_pad - n), (0, 0)), constant_values=NO_STAMP)
+    return np.asarray(ref_kernel.before_pallas(
+        jnp.asarray(padded.T), jnp.asarray(q), block_n=block,
+        interpret=True))[:n]
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 1025])
+@pytest.mark.parametrize("c", [3, 9])
+def test_host_entries_cpu_route_match_reference(n, c):
+    """ops.before_host / before_pairs_host with device="cpu" (numpy in,
+    numpy bool out) == before_pallas in interpret mode and
+    writepath._np_before_pairs; a row view and int64 input too."""
+    create, _, q, qs = case(n, c, 11 * n + c)
+    got_b = ops.before_host(create, q, "cpu")
+    got_p = ops.before_pairs_host(create, qs, "cpu")
+    for got in (got_b, got_p):
+        assert isinstance(got, np.ndarray)
+        assert got.dtype == bool and got.shape == (n,)
+    np.testing.assert_array_equal(got_b, _pallas_before(create, q))
+    np.testing.assert_array_equal(got_p, ref_wp._np_before_pairs(create, qs))
+    if n > 1:
+        np.testing.assert_array_equal(
+            ops.before_host(create[1:].astype(np.int64), q, "cpu"),
+            got_b[1:])
+        np.testing.assert_array_equal(
+            ops.before_pairs_host(create[::2], qs[::2], "cpu"), got_p[::2])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "q_shape", "list"])
+def test_host_entries_reject_bad_input(bad):
+    create, _, q, qs = case(16, 3, 1)
+    rows = create
+    if bad == "dtype":
+        rows = create.astype(np.float32)
+    elif bad == "shape":
+        rows = create.ravel()
+    elif bad == "q_shape":
+        q = qs
+    elif bad == "list":
+        rows = create.tolist()
+    with pytest.raises((TypeError, ValueError)):
+        ops.before_host(rows, q, "cpu")
+    with pytest.raises((TypeError, ValueError)):
+        kernel.before_host(rows, q, "cpu")        # the card entry refuses
+
+
+def test_snapshot_eval_merged_call_equals_two_calls():
+    """SnapshotEngine._eval evaluates create and delete rows in ONE
+    before_host call; its cb, db equal two separate calls."""
+    from types import SimpleNamespace
+    create, delete, q, _ = case(300, 3, 5)
+    eng = SimpleNamespace(device="cpu")
+    cb, db = port_analytics.SnapshotEngine._eval(
+        eng, create, delete, None, None, q, None, False, [])
+    np.testing.assert_array_equal(
+        cb, port_analytics._before_batch(create, q, "cpu"))
+    np.testing.assert_array_equal(
+        db, port_analytics._before_batch(delete, q, "cpu"))
+    assert cb.shape == db.shape == (300,) and cb.any() and db.any()
+    empty = np.zeros((0, 3), np.int32)
+    cb0, db0 = port_analytics.SnapshotEngine._eval(
+        eng, empty, empty, None, None, q, None, True, [])
+    assert cb0.shape == db0.shape == (0,)

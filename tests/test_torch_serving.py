@@ -81,3 +81,34 @@ def test_chip_smoke_serving_phases_rehearse_on_cpu():
     rec = chip_smoke.phase_rec(0, 16, 300, device="cpu",
                                cfg=reduced_config(get_arch("sasrec")))
     assert rec["launches"] == 0 and rec["score_err"] == 0.0
+
+
+@pytest.mark.parametrize("where", ["hist", "candidates"])
+@pytest.mark.parametrize("bad", ["negative", "past_table"])
+def test_rec_server_bad_item_id_raises_and_server_answers_on(where, bad):
+    """An item id outside [0, table rows) raises IndexError before any
+    upload (numpy array or CPU tensor), and the same server then answers
+    the next good call as the reference does."""
+    rcfg = ref_reduced(ref_get_arch("sasrec"))
+    pcfg = reduced_config(get_arch("sasrec"))
+    rp = RS.init_params(jax.random.PRNGKey(0), rcfg)
+    pp = PS.params_from_jax(jax.tree_util.tree_map(np.asarray, rp))
+    rng = np.random.default_rng(2)
+    hist = rng.integers(1, pcfg.n_items + 1, (4, pcfg.seq_len))
+    cands = rng.integers(1, pcfg.n_items + 1, (4, 20))
+    ref, port = R.RecServer(rp, rcfg), P.RecServer(pp, pcfg, device="cpu")
+    rows = pp["item_emb"].shape[0]
+    wrong = -1 if bad == "negative" else rows
+    h_bad, c_bad = hist.copy(), cands.copy()
+    (h_bad if where == "hist" else c_bad)[1, 3] = wrong
+    with pytest.raises(IndexError, match=f"item id {wrong} outside"):
+        port.score(h_bad, c_bad)
+    with pytest.raises(IndexError, match=str(rows)):
+        port.score(torch.from_numpy(h_bad), torch.from_numpy(c_bad))
+    if where == "hist":
+        with pytest.raises(IndexError):
+            port.top_k(h_bad, k=5)
+    np.testing.assert_array_equal(port.top_k(hist, k=5),
+                                  ref.top_k(hist, k=5))
+    np.testing.assert_allclose(port.score(hist, cands),
+                               ref.score(hist, cands), rtol=1e-5, atol=1e-5)
