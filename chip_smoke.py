@@ -6,21 +6,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Device and build: the card's name and power limit, and the build of
    every CUDA source of the port (one ``nvcc`` per source, in parallel).
-2. Kernels against their plain versions: ``before`` and
-   ``before_pairs`` in both output forms (a byte per row, and a bit per
-   row packed in int32 words, held against ``ref.pack_bits``), their
-   host entries (``before_host``, ``before_pairs_host``: numpy in and
-   out, one round trip) and ``visibility``, on seeded int32 stamp
-   matrices (NO_STAMP rows, mixed epochs, equal vectors) at C in {3, 9}
-   and N in {1, 31, 32, 33, 1023, 1025, 68,993,773}, through row views
-   whose address is not 16-byte aligned, and at C = 17 and 40 (widths
-   read at run time, blocks of fewer warps); each must be
+2. Kernels against their plain versions: ``before``, ``before_pairs``
+   and ``visibility`` in both output forms (a byte per row, and a bit per
+   row packed in int32 words, held against ``ref.pack_bits``) and their
+   host entries (``before_host``, ``before_pairs_host``,
+   ``visibility_host``: numpy in and out, one round trip), on seeded
+   int32 stamp matrices (NO_STAMP rows, mixed epochs, equal vectors) at
+   C in {3, 9} and N in {1, 31, 32, 33, 1023, 1025, 68,993,773}, through
+   row views whose address is not 16-byte aligned, and at C = 17 and 40
+   (widths read at run time, blocks of fewer warps); each must be
    bit-identical to its plain PyTorch version.  At the largest N each
    device-facing form is timed with CUDA events beside its bound and its
-   whole tables' bytes; then the host entries' µs per warm call at N 64
-   and 1,024, beside the split of the same compare made through the
-   device-tensor wrapper.  ``scripts/stamp_mutants.py`` shows that
-   broken copies of the kernel fail these checks.
+   whole tables' bytes, beside ``rows.clone()`` of the same table; then
+   the host entries' µs per warm call at N 64 and 1,024 (and
+   ``visibility_host`` at phase 3's snapshot size, 1,398,769 rows),
+   beside the split of the same compare made through the device-tensor
+   wrapper.  ``scripts/stamp_mutants.py`` shows that broken copies of
+   the kernel fail these checks.
 2b. ``segment_mp`` (fused message passing) against its plain version in
    fp64 on the card: the reference tests' cases (fp32, bf16, the 17x3
    ragged case), hubs spanning several chunks, gat-cora's D = 1433, each
@@ -38,7 +40,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    transactions, node programs, GC, snapshots and ``visible_edges_at``.
    The same stream runs through a port ``Weaver(device="cpu")`` in a
    worker process at the same time; results, counters and snapshot
-   arrays must be identical.
+   arrays must be identical.  Then the card run's column plane answers
+   its last query in the byte and the bit form, timed part by part
+   (``plane_mask_forms``); the two forms' masks must be equal.
 3b. GNN training over the live snapshot: the main deployment's card
    Weaver feeds ``DynamicGraphPipeline`` batches (a writer tx commits
    between batches); each batch goes through ``mp.propagate_matmul`` on
@@ -214,6 +218,8 @@ STAMP_NS = (1, 31, 32, 33, 1023, 1025)
 # warps (C = 40)
 STAMP_EXTRA = ((1025, 3, 1), (100_000, 3, 1), (1025, 9, 1), (1025, 17, 0),
                (1025, 17, 1), (3000, 40, 0))
+# raw edge rows of phase 3's snapshots (visible_edges_at's N)
+SNAPSHOT_ROWS = 1_398_769
 
 
 def stamp_case(rng, n: int, c: int, dev, offset: int = 0) -> dict:
@@ -242,10 +248,11 @@ def stamp_checks(case: dict) -> dict:
     """Every stamp-compare form and entry against its plain version on
     the case's inputs: label -> rows (bit form: words) that differ, -1
     for a wrong dtype or shape.  Each label is one launch."""
-    create, _, q, qs = case["host"]
+    create, delete, q, qs = case["host"]
     rows, dele, qt, qst = case["dev"]
     want_b = mvref.before(rows, qt)
     want_p = mvref.before_pairs(rows, qst)
+    want_v = mvref.visibility(rows, dele, qt)
     pairs = {
         "before": (mvops.before_mask(rows, qt), want_b),
         "before bits": (mvk.before(rows, qt, bits=True),
@@ -253,12 +260,15 @@ def stamp_checks(case: dict) -> dict:
         "before_pairs": (mvops.before_pairs(rows, qst), want_p),
         "before_pairs bits": (mvk.before_pairs(rows, qst, bits=True),
                               mvref.pack_bits(want_p)),
-        "visibility": (mvops.visibility_mask(rows, dele, qt),
-                       mvref.visibility(rows, dele, qt)),
+        "visibility": (mvops.visibility_mask(rows, dele, qt), want_v),
+        "visibility bits": (mvk.visibility(rows, dele, qt, bits=True),
+                            mvref.pack_bits(want_v)),
         "before_host": (torch.from_numpy(mvk.before_host(create, q)),
                         want_b.cpu()),
         "before_pairs_host": (torch.from_numpy(
             mvk.before_pairs_host(create, qs)), want_p.cpu()),
+        "visibility_host": (torch.from_numpy(
+            mvk.visibility_host(create, delete, q)), want_v.cpu()),
     }
     torch.cuda.synchronize()
     out = {}
@@ -305,25 +315,29 @@ def needed_words(name: str, args) -> int:
     return words
 
 
-def device_route_split(rows: np.ndarray, q: np.ndarray, per_row: bool,
+DEVICE_WRAPPERS = {"before": mvops.before_mask,
+                   "before_pairs": mvops.before_pairs,
+                   "visibility": mvops.visibility_mask}
+
+
+def device_route_split(name: str, tables: tuple, q: np.ndarray,
                        reps: int = 200) -> dict:
-    """Median host µs of each part of one ``before_pairs`` (``per_row``)
-    or ``before`` compare made through the device-tensor wrapper from
-    host arrays: two pageable uploads (``analytics.to_device``), the
-    wrapper's checks, the rest of the wrapper (output allocation and
-    launch) and the blocking read-back (``.cpu().numpy()``); ``call`` is
-    the whole round trip."""
-    wrapper = mvops.before_pairs if per_row else mvops.before_mask
+    """Median host µs of each part of one ``name`` compare made through
+    the device-tensor wrapper from host arrays: the pageable uploads of
+    ``tables`` and ``q`` (``analytics.to_device``), the wrapper's checks,
+    the rest of the wrapper (output allocation and launch) and the
+    blocking read-back (``.cpu().numpy()``); ``call`` is the whole round
+    trip."""
+    wrapper = DEVICE_WRAPPERS[name]
     parts = {k: [] for k in ("copies", "checks", "launch", "read_back",
                              "call")}
     for i in range(reps + 20):
         t0 = time.perf_counter()
-        r = analytics.to_device(rows, "cuda")
-        s = analytics.to_device(q, "cuda")
+        ts = [analytics.to_device(a, "cuda") for a in (*tables, q)]
         t1 = time.perf_counter()
-        mvk.check((r,), s, per_row=per_row)
+        mvk.check(ts[:-1], ts[-1], per_row=name == "before_pairs")
         t2 = time.perf_counter()
-        out = wrapper(r, s)
+        out = wrapper(*ts)
         t3 = time.perf_counter()
         out.cpu().numpy()
         t4 = time.perf_counter()
@@ -337,25 +351,29 @@ def device_route_split(rows: np.ndarray, q: np.ndarray, per_row: bool,
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
-def host_entry_us(rng, n: int, c: int = 3, reps: int = 200) -> dict:
-    """Median host µs per warm call (``reps`` calls) of each host entry at
-    N = ``n``, and the split of the same compares made through the
-    device-tensor route (``device_route_split``)."""
-    create, _, q, qs = stamp_case(rng, n, c, "cpu")["host"]
+def host_entry_us(rng, n: int, names: tuple, c: int = 3,
+                  reps: int = 200) -> dict:
+    """Median host µs per warm call (``reps`` calls) of each named host
+    entry at N = ``n``, and the split of the same compares made through
+    the device-tensor route (``device_route_split``)."""
+    create, delete, q, qs = stamp_case(rng, n, c, "cpu")["host"]
+    inputs = {"before_pairs": ((create,), qs), "before": ((create,), q),
+              "visibility": ((create, delete), q)}
+    entries = {"before_pairs": mvk.before_pairs_host,
+               "before": mvk.before_host,
+               "visibility": mvk.visibility_host}
     out = {}
-    for name, fn in (("before_pairs_host",
-                      lambda: mvk.before_pairs_host(create, qs)),
-                     ("before_host", lambda: mvk.before_host(create, q))):
+    for name in names:
+        tables, qq = inputs[name]
         times = []
         for i in range(reps + 20):
             t0 = time.perf_counter()
-            fn()
+            entries[name](*tables, qq)
             if i >= 20:
                 times.append((time.perf_counter() - t0) * 1e6)
-        out[name] = statistics.median(times)
-    out["before_pairs device route"] = device_route_split(create, qs, True,
-                                                          reps)
-    out["before device route"] = device_route_split(create, q, False, reps)
+        out[f"{name}_host"] = statistics.median(times)
+        out[f"{name} device route"] = device_route_split(name, tables, qq,
+                                                         reps)
     return out
 
 
@@ -389,6 +407,9 @@ def phase_kernels(seed: int, big_n: int, reps: int) -> dict:
                                  None),
                  "visibility": ((rows, dele, qt), False,
                                 mvops.visibility_mask, mvref.visibility),
+                 "visibility bits": ((rows, dele, qt), True,
+                                     lambda r, d, q: mvk.visibility(
+                                         r, d, q, bits=True), None),
                  "before_pairs": ((rows, qst), False, mvops.before_pairs,
                                   mvref.before_pairs),
                  "before_pairs bits": ((rows, qst), True,
@@ -414,18 +435,22 @@ def phase_kernels(seed: int, big_n: int, reps: int) -> dict:
             timings[(label, c)] = {"ms": k_ms, "plain_ms": p_ms,
                                    "bound_ms": bound_ms,
                                    "whole_ms": whole_ms}
-    print(f"stamp compares == plain versions (bytes, bits, host entries, "
-          f"visibility) at C in (3, 9), N in {(*STAMP_NS, big_n)} and "
-          f"(N, C, offset rows) {STAMP_EXTRA}", flush=True)
+    print(f"stamp compares == plain versions (bytes, bits, host entries; "
+          f"before, before_pairs, visibility) at C in (3, 9), N in "
+          f"{(*STAMP_NS, big_n)} and (N, C, offset rows) {STAMP_EXTRA}",
+          flush=True)
     rng = np.random.default_rng(seed + 1)
-    for n in (64, 1024):
-        us = host_entry_us(rng, n)
-        print(f"host entries N={n} C=3, median of 200 warm calls: "
-              f"before_pairs_host {us['before_pairs_host']:.1f} us, "
-              f"before_host {us['before_host']:.1f} us; device-tensor "
-              f"route (split, us): before_pairs "
-              f"{json.dumps(us['before_pairs device route'])}, before "
-              f"{json.dumps(us['before device route'])}", flush=True)
+    every = ("before_pairs", "before", "visibility")
+    for n, reps_n, names in ((64, 200, every), (1024, 200, every),
+                             (SNAPSHOT_ROWS, 50, ("visibility",))):
+        us = host_entry_us(rng, n, reps=reps_n, names=names)
+        entries = ", ".join(f"{k} {v:.1f} us" for k, v in us.items()
+                            if k.endswith("_host"))
+        routes = ", ".join(f"{k.split()[0]} {json.dumps(v)}"
+                           for k, v in us.items() if k.endswith("route"))
+        print(f"host entries N={n} C=3, median of {reps_n} warm calls: "
+              f"{entries}; device-tensor route (split, us): {routes}",
+              flush=True)
         timings[("host_us", n)] = us
     for (name, c), t in timings.items():
         if name in max_err:
@@ -1742,6 +1767,66 @@ class BoundaryClock:
             for k in self.secs)
 
 
+def plane_mask_forms(plane, reps: int = 20) -> dict:
+    """Median host ms of each part of one ``DeviceColumnPlane.before_all``
+    and its ``masks_for`` calls over the plane's resident blocks at the
+    last query it answered, in two forms: bytes (a bool per row copied
+    back, then a view per block and table) and bits (the plane's form:
+    an int32 word per 32 rows copied back, then each block's synced rows
+    unpacked by ``np.unpackbits``).  Parts: launch (the wrapper's host
+    time), wait (until the kernel is done), copy (device to host, into
+    numpy) and masks.  The two forms' masks must be equal."""
+    if plane._masks_q is None:
+        raise PhaseError("plane forms: the plane answered no query")
+    qd = torch.from_numpy(np.frombuffer(plane._masks_q, np.int32).copy()
+                          ).to(plane.device)
+    blocks = plane._blocks
+    s_, t_, cap = blocks.shape[:3]
+    rows = blocks.view(-1, plane.c)
+    # (block, table, synced rows): tables 0, 1 hold vertices, 2, 3 edges
+    spans = [(bi, t, cur[t // 2]) for bi, cur in enumerate(plane._consumed)
+             for t in range(t_)]
+
+    def form(bits: bool):
+        t0 = time.perf_counter()
+        out = (mvk.before(rows, qd, bits=True) if bits
+               else mvops.before_mask(rows, qd))
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = out.cpu().numpy()
+        t3 = time.perf_counter()
+        if bits:
+            w = host.view(np.uint8)
+            masks = [np.unpackbits(w[(bi * t_ + t) * cap // 8:], count=n,
+                                   bitorder="little").view(bool)
+                     for bi, t, n in spans]
+        else:
+            m = host.reshape(s_, t_, cap)
+            masks = [m[bi, t, :n] for bi, t, n in spans]
+        t4 = time.perf_counter()
+        return masks, {"launch": t1 - t0, "wait": t2 - t1, "copy": t3 - t2,
+                       "masks": t4 - t3, "call": t4 - t0}
+
+    out, masks = {}, {}
+    for name, bits in (("bytes", False), ("bits", True)):
+        parts = []
+        for i in range(reps + 3):
+            torch.cuda.synchronize()
+            masks[name], secs = form(bits)
+            if i >= 3:                              # after 3 warm-ups
+                parts.append(secs)
+        out[name] = {k: statistics.median(p[k] for p in parts) * 1e3
+                     for k in parts[0]}
+    if any(not np.array_equal(a, b)
+           for a, b in zip(masks["bytes"], masks["bits"])):
+        raise PhaseError("plane forms: the bit form's masks != the byte "
+                         "form's")
+    out["rows"] = int(rows.shape[0])
+    out["synced_rows"] = int(sum(n for _, _, n in spans))
+    return out
+
+
 def run_on(device: str, seed: int, n_users: int, plane: bool, n_prog: int,
            n_tx: int):
     """One run of the deployment's seeded stream on ``device``: (steps,
@@ -2188,6 +2273,11 @@ def main(argv=None) -> int:
     main_counts, w = deployment("main", args.seed, args.users, plane=True,
                                 n_prog=args.n_prog, n_tx=args.n_tx,
                                 oracle=False, keep=True)
+    forms = plane_mask_forms(w.device_plane, args.reps)
+    print(f"main: plane before_all over {forms['rows']} resident rows "
+          f"({forms['synced_rows']} synced), median host ms of {args.reps} "
+          f"calls: bytes {json.dumps(forms['bytes'])}, bits "
+          f"{json.dumps(forms['bits'])}", flush=True)
     # the GNN slice's path, driven on the main deployment's card Weaver
     mvk.reset_launches()
     smpk.reset_launches()

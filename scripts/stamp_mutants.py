@@ -7,12 +7,13 @@ replacement), built with nvcc into a temporary directory (the checkout
 is not touched; ``gather_mutants.build_variant``) and bound in place of
 the stamp-compare library.  For the unbroken kernels (the control) and
 each mutant, a process of its own runs phase 2's checks
-(``chip_smoke.stamp_edge_cases``: both output forms of ``before`` and
-``before_pairs``, both host entries and ``visibility`` against their
-plain versions at C in (3, 9), N in ``STAMP_NS`` and the full size, and
-the unaligned views).  A process of its own, because a fault on the
-card (a misaligned load) ends the process's CUDA context: the checks it
-did not reach count as failed.
+(``chip_smoke.stamp_edge_cases``: both output forms of ``before``,
+``before_pairs`` and ``visibility`` and their three host entries against
+their plain versions at C in (3, 9), N in ``STAMP_NS`` and the full size,
+and the unaligned views).  A process of its own, because a fault on the
+card (a misaligned load, or the kernel's trap when a slot's bytes never
+all arrive) ends the process's CUDA context: the checks it did not reach
+count as failed.
 
 The script prints each variant's failing checks and exits 0 only when
 the control passes every check and every mutant fails at least one.
@@ -46,7 +47,10 @@ from repro_torch.kernels.mv_visibility import kernel as mvk  # noqa: E402
 TAIL = "const bool p = r < rem &&"
 BALLOT = "word[j] = __ballot_sync(0xffffffffu, p);"
 TIED_LE = "le &= row[j] <= q[j];"
-VEC = "const bool vec = aligned16(rows) && (!kPairs || aligned16(q));"
+VEC = ("const bool vec = aligned16(rows) && (kTables == 1 || "
+       "aligned16(other));")
+DELETE = "&& !staged_before<kC>(row2, q, c);"
+EXPECT = "hopper::mbar_expect_tx(bar + slot, kTables * bytes);"
 
 # name -> (text of csrc/mv_visibility.cu, its replacement)
 MUTANTS = {
@@ -58,6 +62,13 @@ MUTANTS = {
         BALLOT, "word[j] = __brev(__ballot_sync(0xffffffffu, p));"),
     "<= taken as < on a tied epoch": (TIED_LE, "le &= row[j] < q[j];"),
     "unaligned rows take the 16-byte loads": (VEC, "const bool vec = true;"),
+    "visibility: the delete tile read from the create tile's region": (
+        DELETE, "&& !staged_before<kC>(row, q, c);"),
+    "visibility: && ! taken as &&": (
+        DELETE, "&& staged_before<kC>(row2, q, c);"),
+    "visibility: the delete copy left out of the slot's expected bytes": (
+        EXPECT, "hopper::mbar_expect_tx(bar + slot, (kMode == "
+                "Mode::kVisibility ? 1 : kTables) * bytes);"),
 }
 
 

@@ -1133,15 +1133,11 @@ def clustering_coefficients_np(edge_src: np.ndarray, edge_dst: np.ndarray,
 def visible_edges_at(ga: GraphArrays, at: Stamp, n_gk: int,
                      device: str = "cuda"):
     """Batched snapshot filter over the raw edge set: ONE ``visibility``
-    kernel launch on ``device`` over the raw create/delete rows."""
+    kernel launch on ``device`` over the raw create/delete rows, in one
+    round trip (``mv_ops.visibility_host``)."""
     assert ga.edge_create is not None, "snapshot_arrays(keep_raw=True) needed"
     q = clock.pack(at, n_gk)
-    if ga.edge_create.shape[0] == 0:
-        mask = np.zeros((0,), bool)
-    else:
-        mask = mv_ops.visibility_mask(to_device(ga.edge_create, device),
-                                      to_device(ga.edge_delete, device),
-                                      to_device(q, device)).cpu().numpy()
+    mask = mv_ops.visibility_host(ga.edge_create, ga.edge_delete, q, device)
     return ga.raw_src[mask], ga.raw_dst[mask], mask
 
 

@@ -14,7 +14,7 @@
 //
 // Layout: the rows are read as the host holds them, (N, C) row-major, with
 // no transpose and no padding to a block multiple (the TPU kernel wanted
-// component-major (C, N) padded to 1024).  Every kernel masks its own tail.
+// component-major (C, N) padded to 1024).  The kernel masks its own tail.
 //
 // Bound: HBM bytes.  A pass reads N*C*4 bytes per stamp table (plus N*C*4
 // for qs) and writes N bytes (or N/8 in the bit form), and does C integer
@@ -26,41 +26,45 @@
 // every sector crosses HBM anyway: the whole table's bytes are the bound
 // this layout can reach.
 //
-// `before` and `before_pairs` (compare_kernel): a block of 8 warps owns a
-// block tile of 1,024 consecutive rows at a time, whose rows are contiguous,
-// 1024*C*4 bytes (a multiple of 16).  One thread moves the whole block tile
-// (and the tile of qs) into shared memory with one bulk copy (cp.async.bulk:
-// the TMA engine moves it in 16-byte granules, with no registers, and counts
-// its bytes on an mbarrier).  The block keeps a ring of 2 such slots, so
-// that the next block tile is on its way while its warps evaluate one, each
-// warp its own 128 rows.  Large copies matter on this card: with a warp-
-// sized 1.5 KB tile per copy, or with per-lane 16-byte cp.async copies into
-// a ring per warp, the same kernel read HBM more slowly than with 12 KB
-// block tiles.  Each lane evaluates rows lane + 32*j of its warp's 128 from
-// shared memory: with odd C (3, 9) the 32 lanes of one read hit 32 distinct
+// One kernel (compare_kernel) in three modes:
+//   before:       rows[i] ≺ q          (q one (C,) stamp)
+//   pairs:        rows[i] ≺ qs[i]      (qs (N, C) like rows)
+//   visibility:   create[i] ≺ q and not delete[i] ≺ q
+// A block of 8 warps owns a block tile of 1,024 consecutive rows at a
+// time, whose rows are contiguous, 1024*C*4 bytes (a multiple of 16).  One
+// thread moves the whole block tile of each table the mode reads (rows;
+// rows and qs; create and delete rows) into shared memory with one bulk
+// copy per table (cp.async.bulk: the TMA engine moves it in 16-byte
+// granules, with no registers, and counts its bytes on the slot's
+// mbarrier).  The block keeps a ring of 2 such slots, so that the next
+// block tile is on its way while its warps evaluate one, each warp its own
+// 128 rows.  Large copies matter on this card: with a warp-sized 1.5 KB
+// tile per copy, or with per-lane 16-byte cp.async copies into a ring per
+// warp, the same kernel read HBM more slowly than with 12 KB block tiles.
+// Each lane evaluates rows lane + 32*j of its warp's 128 from shared
+// memory: with odd C (3, 9) the 32 lanes of one read hit 32 distinct
 // banks; an even C costs a gcd(C, 32)-way conflict on each word read (2-way
-// at C = 2, 8-way at C = 8).  The evaluation's instructions are of the order
-// of the copy's time at C = 3, so the row width is a template for C = 2..9
-// (1 to 8 gatekeepers): the loop over C unrolls and the shared query q stays
-// in registers; other widths read C at run time, with q in shared memory,
-// loaded once per block.  Each warp-wide predicate becomes one 32-bit word
-// by __ballot_sync, and the output is a template:
+// at C = 2, 8-way at C = 8).  The evaluation's instructions are of the
+// order of the copy's time at C = 3, so the row width is a template for
+// C = 2..9 (1 to 8 gatekeepers): the loop over C unrolls and the shared
+// query q stays in registers; other widths read C at run time, with q in
+// shared memory, loaded once per block.  Each warp-wide predicate becomes
+// one 32-bit word by __ballot_sync, and the output is a template:
 //   bytes: one 0/1 byte per row (torch.bool storage); lane L stores rows
 //          4L..4L+3 of its warp's 128 as one 4-byte word;
 //   bits:  one uint32 per 32 rows, bit k = row k (least significant
 //          first: np.unpackbits(..., bitorder="little")), N/8 bytes.
 // The grid is persistent (as many blocks as fit on the card at once), the
 // blocks striding over block tiles with 64-bit indices.  The ragged last
-// block tile, and every tile of rows whose address is not 16-byte aligned
+// block tile, and every tile whose tables do not all start 16-byte aligned
 // (a row view at an odd offset), are staged by the block with 4-byte loads
-// instead; the evaluation and the stores are the same.
-//
-// `visibility` is still the first design: one thread per row, a
-// grid-stride loop, a loop over C reading the rows from global memory.
+// instead; the evaluation and the stores are the same.  A slot whose bytes
+// never all arrive traps after kWaitNs instead of holding the card.
 //
 // `mv_compare_host` is the host entries' round trip: one host-to-device
-// copy of the packed inputs, the bit-form compare, one device-to-host copy
-// of the bit words, all on one stream without synchronising.
+// copy of the packed inputs, the bit-form compare in any mode, one
+// device-to-host copy of the bit words, all on one stream without
+// synchronising.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,6 +72,9 @@
 #include "hopper.cuh"
 
 namespace {
+
+// What a launch compares; the values are the C interface's `mode`.
+enum class Mode : int { kBefore = 0, kPairs = 1, kVisibility = 2 };
 
 constexpr int32_t kNoStamp = 0x7fffffff;
 constexpr int kThreads = 256;
@@ -80,50 +87,9 @@ constexpr size_t kSmemSoft = 48 * 1024 - kBarBytes;  // without opting in
 constexpr size_t kSmemMax = 232448 - kBarBytes;      // a block's maximum
 constexpr int kMaxDevices = 16;            // devices whose launch shapes
                                            // are remembered
-constexpr int kMaxC = 226;                 // widest row: one warp's tile of
-                                           // rows and of qs in kSmemMax
-
-__device__ __forceinline__ bool before_row(const int32_t* __restrict__ row,
-                                           const int32_t* __restrict__ q,
-                                           int c) {
-  const int32_t e = row[0];
-  const int32_t qe = __ldg(q);
-  if (e == kNoStamp) return false;
-  if (e < qe) return true;
-  if (e != qe) return false;
-  bool le = true;
-  bool eq = true;
-  for (int j = 1; j < c; ++j) {
-    const int32_t x = row[j];
-    const int32_t y = __ldg(q + j);
-    le &= (x <= y);
-    eq &= (x == y);
-  }
-  return le && !eq;
-}
-
-__global__ void visibility_kernel(const int32_t* __restrict__ create,
-                                  const int32_t* __restrict__ del,
-                                  const int32_t* __restrict__ q,
-                                  uint8_t* __restrict__ out, int64_t n,
-                                  int c) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    const bool vis = before_row(create + i * c, q, c) &&
-                     !before_row(del + i * c, q, c);
-    out[i] = vis ? 1 : 0;
-  }
-}
-
-// Enough blocks to cover n once, capped so the grid-stride loop takes over
-// for very large n (132 SMs x 16 resident 256-thread blocks x 8 waves).
-unsigned int grid_for(int64_t n) {
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 16 * 8;
-  return static_cast<unsigned int>(want < cap ? want : cap);
-}
+constexpr int kMaxC = 226;                 // widest row: one warp's tiles of
+                                           // two tables (and q) in kSmemMax
+constexpr uint64_t kWaitNs = 10ull * 1000 * 1000 * 1000;  // 10 s
 
 __host__ __device__ __forceinline__ int round4(int64_t x) {
   return static_cast<int>((x + 3) & ~int64_t{3});
@@ -142,6 +108,15 @@ __device__ __forceinline__ void load_words(int32_t* dst,
   for (int k = threadIdx.x; k < words; k += blockDim.x) dst[k] = __ldg(src + k);
 }
 
+// Wait for the phase of parity `parity` of `bar`, or trap after kWaitNs:
+// bytes that never all arrive end the launch with an error.
+__device__ __forceinline__ void wait_slot(uint64_t* bar, uint32_t parity) {
+  if (hopper::mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = hopper::global_ns();
+  while (!hopper::mbar_try_wait(bar, parity))
+    if (hopper::global_ns() - t0 > kWaitNs) __trap();
+}
+
 // row ≺ q for a row in shared memory and a query in shared memory or in
 // registers; kC > 0 is the row width known when compiled, 0 reads c.
 template <int kC>
@@ -158,6 +133,17 @@ __device__ __forceinline__ bool staged_before(const int32_t* row,
     eq &= row[j] == q[j];
   }
   return e != kNoStamp && (e < qe || (e == qe && le && !eq));
+}
+
+// The mode's predicate for one row: `row` is the first table's row,
+// `row2` the second table's (pairs: its query; visibility: its delete
+// row), q the shared query.
+template <Mode kMode, int kC>
+__device__ __forceinline__ bool hit(const int32_t* row, const int32_t* row2,
+                                    const int32_t* q, int c) {
+  if (kMode == Mode::kBefore) return staged_before<kC>(row, q, c);
+  if (kMode == Mode::kPairs) return staged_before<kC>(row, row2, c);
+  return staged_before<kC>(row, q, c) && !staged_before<kC>(row2, q, c);
 }
 
 // word[i] without indexing registers by a runtime value.
@@ -200,18 +186,22 @@ __device__ __forceinline__ void store_tile(void* __restrict__ out, int64_t t,
   }
 }
 
-// rows[i] ≺ q (kPairs false: q is one (C,) stamp) or rows[i] ≺ q[i]
-// (kPairs: q is (N, C) like rows), to bytes or bits (kBits); kC > 0 is the
-// width C known when compiled, 0 reads c.  A block owns a block tile of
-// warps * kTile rows at a time and keeps a ring of `stages` block tiles in
-// shared memory, each slot with its own mbarrier: one thread starts the
-// bulk copy of a later block tile while the block's warps evaluate the
-// oldest, each warp its own kTile rows.
-template <bool kPairs, bool kBits, int kC>
+// The mode's predicate over n rows of `rows` (and of `other`: pairs' qs,
+// visibility's delete rows; q is the shared (C,) query, unused by pairs),
+// to bytes or bits (kBits); kC > 0 is the width C known when compiled, 0
+// reads c.  A block owns a block tile of warps * kTile rows at a time and
+// keeps a ring of `stages` block tiles in shared memory, each slot with
+// its own mbarrier: one thread starts the bulk copies of a later block
+// tile while the block's warps evaluate the oldest, each warp its own
+// kTile rows.
+template <Mode kMode, bool kBits, int kC>
 __global__ void __launch_bounds__(kThreads)
 compare_kernel(const int32_t* __restrict__ rows,
+               const int32_t* __restrict__ other,
                const int32_t* __restrict__ q, void* __restrict__ out,
                int64_t n, int c_arg, int stages) {
+  constexpr int kTables = kMode == Mode::kBefore ? 1 : 2;
+  constexpr bool kShared = kMode != Mode::kPairs;   // one query for all
   extern __shared__ __align__(16) int32_t smem[];
   __shared__ uint64_t bar[kStages];
   const int c = kC > 0 ? kC : c_arg;
@@ -220,39 +210,40 @@ compare_kernel(const int32_t* __restrict__ rows,
   const int warps = blockDim.x >> 5;
   const int block_rows = warps * kTile;
   const int block_words = block_rows * c;
-  const int slot_words = block_words * (kPairs ? 2 : 1);
-  int32_t* ring = smem + (kPairs ? 0 : round4(c));
-  if (!kPairs)
+  const int slot_words = block_words * kTables;
+  int32_t* ring = smem + (kShared ? round4(c) : 0);
+  if (kShared)
     for (int k = threadIdx.x; k < c; k += blockDim.x) smem[k] = __ldg(q + k);
   if (threadIdx.x == 0)
     for (int s = 0; s < stages; ++s) hopper::mbar_init(bar + s, 1);
   hopper::mbar_init_fence();
   __syncthreads();
   int32_t q_reg[kC > 0 ? kC : 1];       // the shared query, kC > 0 only
-  if (kC > 0 && !kPairs) {
+  if (kC > 0 && kShared) {
 #pragma unroll
     for (int j = 0; j < (kC > 0 ? kC : 1); ++j) q_reg[j] = smem[j];
   }
-  const bool vec = aligned16(rows) && (!kPairs || aligned16(q));
+  const int32_t* qr = kC > 0 ? q_reg : smem;
+  const bool vec = aligned16(rows) && (kTables == 1 || aligned16(other));
   const int64_t tiles = (n + block_rows - 1) / block_rows;
   const int64_t step = gridDim.x;
   auto rows_in = [&](int64_t t) {
     const int64_t left = n - t * block_rows;
     return left < block_rows ? static_cast<int>(left) : block_rows;
   };
-  // Slot `slot` takes block tile t: its bulk copy when the tile is whole
-  // and aligned, else a bare arrival (the block stages it itself when it
-  // comes to it, as it does for tiles past the end, which it never
-  // reaches).  Thread 0 only.
+  // Slot `slot` takes block tile t: its bulk copies when the tile is
+  // whole and aligned, else a bare arrival (the block stages it itself
+  // when it comes to it, as it does for tiles past the end, which it
+  // never reaches).  Thread 0 only.
   auto issue = [&](int64_t t, int slot) {
     if (threadIdx.x != 0) return;
     if (t < tiles && vec && rows_in(t) == block_rows) {
       const uint32_t bytes = block_words * 4;
       int32_t* dst = ring + slot * slot_words;
-      hopper::mbar_expect_tx(bar + slot, kPairs ? 2 * bytes : bytes);
+      hopper::mbar_expect_tx(bar + slot, kTables * bytes);
       hopper::bulk_load(dst, rows + t * block_words, bytes, bar + slot);
-      if (kPairs)
-        hopper::bulk_load(dst + block_words, q + t * block_words, bytes,
+      if (kTables == 2)
+        hopper::bulk_load(dst + block_words, other + t * block_words, bytes,
                           bar + slot);
     } else {
       hopper::mbar_arrive(bar + slot);
@@ -264,14 +255,15 @@ compare_kernel(const int32_t* __restrict__ rows,
   for (int slot = 0; t < tiles;
        t += step, slot = slot + 1 == stages ? 0 : slot + 1) {
     issue(t + (stages - 1) * step, slot == 0 ? stages - 1 : slot - 1);
-    hopper::mbar_wait(bar + slot, (parity >> slot) & 1u);
+    wait_slot(bar + slot, (parity >> slot) & 1u);
     parity ^= 1u << slot;
     const int rem_block = rows_in(t);
     int32_t* s_rows = ring + slot * slot_words;
     if (!(vec && rem_block == block_rows)) {
       load_words(s_rows, rows + t * block_words, rem_block * c);
-      if (kPairs)
-        load_words(s_rows + block_words, q + t * block_words, rem_block * c);
+      if (kTables == 2)
+        load_words(s_rows + block_words, other + t * block_words,
+                   rem_block * c);
       hopper::fence_proxy_async();      // before a bulk copy reuses the slot
       __syncthreads();
     }
@@ -283,9 +275,9 @@ compare_kernel(const int32_t* __restrict__ rows,
 #pragma unroll
       for (int j = 0; j < kPerLane; ++j) {
         const int r = lane + 32 * j;
-        const int32_t* qr = kPairs ? w_rows + block_words + r * c
-                                   : (kC > 0 ? q_reg : smem);
-        const bool p = r < rem && staged_before<kC>(w_rows + r * c, qr, c);
+        const int32_t* row = w_rows + r * c;
+        const bool p = r < rem &&
+                       hit<kMode, kC>(row, row + block_words, qr, c);
         word[j] = __ballot_sync(0xffffffffu, p);
       }
       store_tile<kBits>(out, t * warps + warp, rem, word, lane);
@@ -307,17 +299,20 @@ int sm_count(int dev) {
   return sms;
 }
 
-// Launch compare_kernel<kPairs, kBits, kC>: blocks of 8 warps with a ring
+// Launch compare_kernel<kMode, kBits, kC>: blocks of 8 warps with a ring
 // of kStages block tiles (fewer warps, then one stage, for rows too wide
 // to fit 227 KB of shared memory); as many blocks as are resident on the
 // card at once, or fewer for small n.
-template <bool kPairs, bool kBits, int kC>
-int launch_compare(const int32_t* rows, const int32_t* q, void* out,
-                   int64_t n, int c, cudaStream_t stream) {
+template <Mode kMode, bool kBits, int kC>
+int launch_compare(const int32_t* rows, const int32_t* other,
+                   const int32_t* q, void* out, int64_t n, int c,
+                   cudaStream_t stream) {
   if (c < 1 || c > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = compare_kernel<kPairs, kBits, kC>;
-  const size_t warp_tile = size_t{kTile} * c * 4 * (kPairs ? 2 : 1);
-  const size_t q_bytes = kPairs ? 0 : size_t{4} * round4(c);
+  auto kernel = compare_kernel<kMode, kBits, kC>;
+  const size_t warp_tile =
+      size_t{kTile} * c * 4 * (kMode == Mode::kBefore ? 1 : 2);
+  const size_t q_bytes =
+      kMode == Mode::kPairs ? 0 : size_t{4} * round4(c);
   int warps = kMaxWarps;
   int stages = kStages;
   while (q_bytes + size_t{1} * stages * warps * warp_tile > kSmemMax) {
@@ -350,33 +345,48 @@ int launch_compare(const int32_t* rows, const int32_t* q, void* out,
   const int64_t cap = static_cast<int64_t>(sm_count(dev)) * resident;
   const unsigned int grid =
       static_cast<unsigned int>(want < cap ? want : cap);
-  kernel<<<grid, warps * 32, smem, stream>>>(rows, q, out, n, c, stages);
+  kernel<<<grid, warps * 32, smem, stream>>>(rows, other, q, out, n, c,
+                                             stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The kernel compiled for the row width c when it is a common one (1 to 8
 // gatekeepers), else the one that reads c.
-template <bool kPairs, bool kBits>
-int launch_width(const int32_t* rows, const int32_t* q, void* out, int64_t n,
-                 int c, cudaStream_t s) {
+template <Mode kMode, bool kBits>
+int launch_width(const int32_t* rows, const int32_t* other, const int32_t* q,
+                 void* out, int64_t n, int c, cudaStream_t s) {
   switch (c) {
-    case 2: return launch_compare<kPairs, kBits, 2>(rows, q, out, n, c, s);
-    case 3: return launch_compare<kPairs, kBits, 3>(rows, q, out, n, c, s);
-    case 4: return launch_compare<kPairs, kBits, 4>(rows, q, out, n, c, s);
-    case 5: return launch_compare<kPairs, kBits, 5>(rows, q, out, n, c, s);
-    case 6: return launch_compare<kPairs, kBits, 6>(rows, q, out, n, c, s);
-    case 7: return launch_compare<kPairs, kBits, 7>(rows, q, out, n, c, s);
-    case 8: return launch_compare<kPairs, kBits, 8>(rows, q, out, n, c, s);
-    case 9: return launch_compare<kPairs, kBits, 9>(rows, q, out, n, c, s);
-    default: return launch_compare<kPairs, kBits, 0>(rows, q, out, n, c, s);
+#define MV_WIDTH(W) \
+  case W:           \
+    return launch_compare<kMode, kBits, W>(rows, other, q, out, n, c, s);
+    MV_WIDTH(2) MV_WIDTH(3) MV_WIDTH(4) MV_WIDTH(5)
+    MV_WIDTH(6) MV_WIDTH(7) MV_WIDTH(8) MV_WIDTH(9)
+#undef MV_WIDTH
+    default: return launch_compare<kMode, kBits, 0>(rows, other, q, out, n,
+                                                    c, s);
   }
 }
 
-template <bool kPairs>
-int launch_form(const int32_t* rows, const int32_t* q, void* out, int64_t n,
-                int c, int bits, cudaStream_t stream) {
-  return bits ? launch_width<kPairs, true>(rows, q, out, n, c, stream)
-              : launch_width<kPairs, false>(rows, q, out, n, c, stream);
+template <Mode kMode>
+int launch_form(const int32_t* rows, const int32_t* other, const int32_t* q,
+                void* out, int64_t n, int c, int bits, cudaStream_t s) {
+  return bits ? launch_width<kMode, true>(rows, other, q, out, n, c, s)
+              : launch_width<kMode, false>(rows, other, q, out, n, c, s);
+}
+
+int launch_mode(int mode, const int32_t* rows, const int32_t* other,
+                const int32_t* q, void* out, int64_t n, int c, int bits,
+                cudaStream_t s) {
+  switch (static_cast<Mode>(mode)) {
+    case Mode::kBefore:
+      return launch_form<Mode::kBefore>(rows, other, q, out, n, c, bits, s);
+    case Mode::kPairs:
+      return launch_form<Mode::kPairs>(rows, other, q, out, n, c, bits, s);
+    case Mode::kVisibility:
+      return launch_form<Mode::kVisibility>(rows, other, q, out, n, c, bits,
+                                            s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -389,42 +399,45 @@ int launch_form(const int32_t* rows, const int32_t* q, void* out, int64_t n,
 
 extern "C" int mv_before(const int32_t* rows, const int32_t* q, void* out,
                          int64_t n, int32_t c, int32_t bits, void* stream) {
-  return launch_form<false>(rows, q, out, n, c, bits,
-                            static_cast<cudaStream_t>(stream));
+  return launch_mode(0, rows, nullptr, q, out, n, c, bits,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mv_before_pairs(const int32_t* rows, const int32_t* qs,
                                void* out, int64_t n, int32_t c, int32_t bits,
                                void* stream) {
-  return launch_form<true>(rows, qs, out, n, c, bits,
-                           static_cast<cudaStream_t>(stream));
+  return launch_mode(1, rows, qs, nullptr, out, n, c, bits,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mv_visibility(const int32_t* create, const int32_t* del,
-                             const int32_t* q, uint8_t* out, int64_t n,
-                             int32_t c, void* stream) {
-  visibility_kernel<<<grid_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(create, del, q,
-                                                           out, n, c);
-  return static_cast<int>(cudaGetLastError());
+                             const int32_t* q, void* out, int64_t n,
+                             int32_t c, int32_t bits, void* stream) {
+  return launch_mode(2, create, del, q, out, n, c, bits,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // One host call's round trip on `stream`: copy in_bytes from pinned
-// host_in to dev_in (which holds rows and q at the given device pointers),
-// run the bit-form compare (pairs: before_pairs, else before) into
+// host_in to dev_in (none when in_bytes is 0: the caller copied the
+// inputs itself), where the inputs lie at the given device pointers:
+// rows, the second table `other` (pairs: qs; visibility: the delete
+// rows; before: unused) and the shared query q (pairs: unused); run the
+// bit-form compare of `mode` (0 before, 1 pairs, 2 visibility) into
 // dev_bits, and copy its ceil(n / 32) words to pinned host_bits.  The
 // caller waits on the stream before it reads host_bits.
 extern "C" int mv_compare_host(const void* host_in, void* dev_in,
                                int64_t in_bytes, const int32_t* rows,
-                               const int32_t* q, uint32_t* dev_bits,
-                               uint32_t* host_bits, int64_t n, int32_t c,
-                               int32_t pairs, void* stream) {
+                               const int32_t* other, const int32_t* q,
+                               uint32_t* dev_bits, uint32_t* host_bits,
+                               int64_t n, int32_t c, int32_t mode,
+                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemcpyAsync(dev_in, host_in, in_bytes,
-                                    cudaMemcpyHostToDevice, s);
+  cudaError_t err = cudaSuccess;
+  if (in_bytes > 0)
+    err = cudaMemcpyAsync(dev_in, host_in, in_bytes, cudaMemcpyHostToDevice,
+                          s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = pairs ? launch_form<true>(rows, q, dev_bits, n, c, 1, s)
-                       : launch_form<false>(rows, q, dev_bits, n, c, 1, s);
+  const int rc = launch_mode(mode, rows, other, q, dev_bits, n, c, 1, s);
   if (rc != 0) return rc;
   err = cudaMemcpyAsync(host_bits, dev_bits, ((n + 31) / 32) * 4,
                         cudaMemcpyDeviceToHost, s);

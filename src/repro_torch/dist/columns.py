@@ -6,9 +6,10 @@ The host-global engines (``core.analytics.SnapshotEngine``,
 compare them per call.  This plane keeps a *committed* copy of every
 partition's packed stamp tables resident on the deployment's device and
 answers "row ≺ q" for ALL shards with a single ``before`` kernel launch;
-only the boolean masks travel back to the host, and the concurrent
-residue still takes the engines' existing single batched oracle trip
-(refinement patches the host masks in place).
+only its bit form (one bit per resident row) travels back to the host,
+each partition's masks are unpacked from it on demand, and the
+concurrent residue still takes the engines' existing single batched
+oracle trip (refinement patches the unpacked host masks in place).
 
 Layout invariants:
 
@@ -68,7 +69,9 @@ class DeviceColumnPlane:
         self._consumed: List[Optional[List[int]]] = []  # per-block cursor
         self._cap = 0                      # B: rows per (table, block)
         self._blocks: Optional[torch.Tensor] = None   # (S, 4, B, C) int32
-        self._masks: Optional[np.ndarray] = None      # (S, 4, B) bool
+        # the last launch's bit words as bytes: bit k = row k of the
+        # flattened (S, 4, B) rows, least significant bit first
+        self._bits: Optional[np.ndarray] = None
         self._masks_q: Optional[bytes] = None
         self.stats = {"rebuilds": 0, "row_updates": 0, "block_uploads": 0,
                       "launches": 0}
@@ -108,7 +111,7 @@ class DeviceColumnPlane:
         self._blocks = to_device(host, self.device)
         for bi, cols in enumerate(self._cols):
             self._consumed[bi] = cols.cursor()
-        self._masks = None
+        self._bits = None
         self.stats["rebuilds"] += 1
 
     @staticmethod
@@ -150,7 +153,7 @@ class DeviceColumnPlane:
         if ups:
             self._scatter(bi, ups)
         self._consumed[bi] = tgt
-        self._masks = None
+        self._bits = None
 
     def _scatter(self, bi: int,
                  ups: List[Tuple[int, np.ndarray, np.ndarray]]) -> None:
@@ -164,36 +167,44 @@ class DeviceColumnPlane:
         host = np.full((TABLES, self._cap, self.c), NO_STAMP, np.int32)
         self._fill_block(host, cols)
         self._blocks[bi].copy_(torch.from_numpy(host))
-        self._masks = None
+        self._bits = None
         self.stats["block_uploads"] += 1
 
     # ---- the launch --------------------------------------------------------
 
     def before_all(self, q: np.ndarray) -> None:
         """ONE ``before`` kernel launch answering ``row ≺ q`` for every
-        resident block over the flattened ``(S·4·B, C)`` rows; host-side
-        masks cached until the next mutation or query change.  Call
-        after :meth:`sync`."""
+        resident block over the flattened ``(S·4·B, C)`` rows, in its bit
+        form (S·4·B / 8 bytes copied back, 8x fewer than a bool per row);
+        the bits are cached until the next mutation or query change.
+        Call after :meth:`sync`."""
         q = np.asarray(q, np.int32)
-        if self._masks is not None and self._masks_q == q.tobytes():
+        if self._bits is not None and self._masks_q == q.tobytes():
             return
         rows = self._blocks.view(-1, self.c)
-        out = mv_ops.before_mask(rows, to_device(q, self.device))
-        self._masks = out.view(self._blocks.shape[:-1]).cpu().numpy()
+        words = mv_ops.before_mask(rows, to_device(q, self.device),
+                                   bits=True)
+        self._bits = words.cpu().numpy().view(np.uint8)
         self._masks_q = q.tobytes()
         self.stats["launches"] += 1
+
+    def _unpack(self, bi: int, table: int, n: int) -> np.ndarray:
+        """The first ``n`` rows of block ``bi``'s ``table`` as bools."""
+        lo = (bi * TABLES + table) * self._cap
+        raw = np.unpackbits(self._bits[lo // 8:(lo + n + 7) // 8],
+                            bitorder="little")
+        return raw[lo % 8:lo % 8 + n].view(bool)
 
     def masks_for(self, cols) -> Tuple[np.ndarray, np.ndarray,
                                        np.ndarray, np.ndarray]:
         """(v_create≺q, v_delete≺q, e_create≺q, e_delete≺q) boolean masks
-        for one partition, trimmed to its synced row counts."""
+        for one partition, unpacked for its synced row counts only."""
         bi = self._idx[id(cols)]
-        cur = self._consumed[bi]
-        m = self._masks[bi]
-        nv, ne = cur[0], cur[1]
-        return m[0, :nv], m[1, :nv], m[2, :ne], m[3, :ne]
+        nv, ne = self._consumed[bi][:2]
+        return tuple(self._unpack(bi, t, n)
+                     for t, n in enumerate((nv, nv, ne, ne)))
 
     def has(self, cols) -> bool:
         bi = self._idx.get(id(cols))
         return (bi is not None and self._cols[bi] is cols
-                and self._masks is not None)
+                and self._bits is not None)

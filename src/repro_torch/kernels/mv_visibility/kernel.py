@@ -9,19 +9,24 @@ Two kinds of entry:
 * Device-facing (:func:`before`, :func:`visibility`, :func:`before_pairs`):
   CUDA tensors in, a CUDA tensor out.  Each checks its tensors, allocates
   its output with ``torch.empty`` and launches on the current stream
-  without synchronising.  ``before`` and ``before_pairs`` return one bool
-  per row, or with ``bits=True`` one int32 word per 32 rows (bit k of the
-  stream is row k, least significant bit first).
-* Host-facing (:func:`before_host`, :func:`before_pairs_host`): numpy
-  stamp rows in, a numpy bool mask out, in one round trip: the inputs are
-  packed into a pinned host buffer, copied to the card in one
-  asynchronous copy, compared by one launch of the bit form, the bit
-  words copied back in one asynchronous copy, and the stream waited on
-  once.  The buffers (:class:`Staging`, one per device) grow by doubling
-  and are kept between calls, so a warm call allocates nothing.  They
-  belong to the one thread that drives a deployment: two threads calling
-  a host entry on one device at once would share them.  (A CPU twin of a
-  deployment runs in another process, with its own.)
+  without synchronising.  Each returns one bool per row, or with
+  ``bits=True`` one int32 word per 32 rows (bit k of the stream is row k,
+  least significant bit first).
+* Host-facing (:func:`before_host`, :func:`before_pairs_host`,
+  :func:`visibility_host`): numpy stamp rows in, a numpy bool mask out,
+  in one round trip: the inputs are packed into a pinned host buffer,
+  copied to the card in one asynchronous copy, compared by one launch of
+  the bit form, the bit words copied back in one asynchronous copy, and
+  the stream waited on once.  Inputs over :data:`PACK_LIMIT` bytes skip
+  the pinned buffer: each array goes to the card as a pageable copy (the
+  CUDA runtime overlaps its own staging copy with the transfer, where
+  packing costs a copy on one core first, and pinning a buffer that
+  large costs more than the call).  The buffers (:class:`Staging`, one
+  per device) grow by doubling and are kept between calls, so a warm
+  call allocates nothing.  They belong to the one thread that drives a
+  deployment: two threads calling a host entry on one device at once
+  would share them.  (A CPU twin of a deployment runs in another
+  process, with its own.)
 
 ``launches`` counts each kernel's launches (one per launch, nowhere
 else), so a run can show which kernels its path went through.
@@ -38,9 +43,15 @@ import torch
 from .. import build
 
 SOURCE = "mv_visibility"
-#: widest stamp row the kernels take (one warp's tiles of rows and query
-#: rows fill a block's 227 KB of shared memory)
+#: widest stamp row the kernels take (one warp's tiles of two tables fill
+#: a block's 227 KB of shared memory)
 MAX_C = 226
+
+#: host-entry inputs above this many bytes are copied to the card from
+#: the caller's arrays (pageable) instead of packed into pinned memory;
+#: it lies between the sizes phase 2 of chip_smoke.py times the two
+#: ways (N 1,024: packed faster; N 1,398,769: pageable faster)
+PACK_LIMIT = 1 << 20
 
 #: launches per kernel since :func:`reset_launches`
 launches: Dict[str, int] = {"before": 0, "visibility": 0, "before_pairs": 0}
@@ -50,10 +61,13 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _ARGTYPES = {
     "mv_before": [_P, _P, _P, _I64, _I32, _I32, _P],
-    "mv_visibility": [_P, _P, _P, _P, _I64, _I32, _P],
+    "mv_visibility": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
     "mv_before_pairs": [_P, _P, _P, _I64, _I32, _I32, _P],
-    "mv_compare_host": [_P, _P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+    "mv_compare_host": [_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I32, _I32,
+                        _P],
 }
+#: the compare modes of ``mv_compare_host``
+_MODES = {"before": 0, "before_pairs": 1, "visibility": 2}
 _bound = None
 
 
@@ -102,16 +116,22 @@ def check(tables: Sequence[torch.Tensor], q: torch.Tensor,
         raise ValueError(f"query stamp shape {tuple(q.shape)}, want {want}")
 
 
-def check_host(rows: np.ndarray, q: np.ndarray, per_row: bool) -> None:
-    """Raise unless ``rows`` is an (N, C) integer array and ``q`` an
-    integer ``(C,)`` stamp (or ``(N, C)`` rows when ``per_row``)."""
-    for a in (rows, q):
+def check_host(tables: Sequence[np.ndarray], q: np.ndarray,
+               per_row: bool) -> None:
+    """Raise unless every table is an (N, C) integer array of one shape
+    and ``q`` an integer ``(C,)`` stamp (or ``(N, C)`` rows when
+    ``per_row``)."""
+    for a in (*tables, q):
         if not isinstance(a, np.ndarray):
             raise TypeError(f"expected a numpy array, got {type(a)}")
         if not np.issubdtype(a.dtype, np.integer):
             raise TypeError(f"stamp rows must be integers, got {a.dtype}")
+    rows = tables[0]
     if rows.ndim != 2 or rows.shape[1] < 1:
         raise ValueError(f"stamp rows must be (N, C), got {rows.shape}")
+    for t in tables[1:]:
+        if t.shape != rows.shape:
+            raise ValueError(f"shapes {t.shape} != {rows.shape}")
     want = rows.shape if per_row else (rows.shape[1],)
     if q.shape != want:
         raise ValueError(f"query stamp shape {q.shape}, want {want}")
@@ -124,23 +144,22 @@ def _check_width(c: int) -> None:
 
 
 def _launch(name: str, fn: str, tables: Sequence[torch.Tensor],
-            q: torch.Tensor, per_row: bool, *form) -> torch.Tensor:
-    """Launch ``fn`` into a new output; ``form`` is the bit-form flag of
-    the kernels that have one (empty for ``visibility``)."""
+            q: torch.Tensor, per_row: bool, bits: bool) -> torch.Tensor:
+    """Launch ``fn`` into a new output: a bool per row, or with ``bits``
+    an int32 word per 32 rows."""
     check(tables, q, per_row)
     dev = tables[0].device
     if dev.type != "cuda":
         raise ValueError(f"the {name} kernel takes CUDA tensors, got {dev}")
     n, c = tables[0].shape
     _check_width(c)
-    bits = bool(form and form[0])
     out = (torch.empty(((n + 31) // 32,), dtype=torch.int32, device=dev)
            if bits else torch.empty((n,), dtype=torch.bool, device=dev))
     if n == 0:
         return out
     rc = build.launch_on(tables[0], getattr(_lib(), fn),
                          *(t.data_ptr() for t in tables), q.data_ptr(),
-                         out.data_ptr(), n, c, *(int(f) for f in form))
+                         out.data_ptr(), n, c, int(bits))
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed with CUDA error {rc}")
     launches[name] += 1
@@ -155,10 +174,12 @@ def before(rows: torch.Tensor, q: torch.Tensor,
 
 
 def visibility(create: torch.Tensor, delete: torch.Tensor,
-               q: torch.Tensor) -> torch.Tensor:
-    """``create ≺ q and not delete ≺ q`` -> (N,) bool."""
+               q: torch.Tensor, bits: bool = False) -> torch.Tensor:
+    """``create[i] ≺ q and not delete[i] ≺ q``: two (N, C) int32 tensors,
+    q (C,) int32 -> (N,) bool, or with ``bits`` (ceil(N / 32),) int32
+    words."""
     return _launch("visibility", "mv_visibility", (create, delete), q,
-                   False)
+                   False, bits)
 
 
 def before_pairs(rows: torch.Tensor, qs: torch.Tensor,
@@ -179,8 +200,9 @@ def _round4(x: int) -> int:
 
 class Staging:
     """One device's buffers for the host entries: a pinned host buffer
-    (the packed inputs, then the returned bit words), the device input
-    buffer and the device bit buffer, each grown by doubling and kept."""
+    (the packed inputs, if packed, then the returned bit words), the
+    device input buffer and the device bit buffer, each grown by doubling
+    and kept."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -193,8 +215,8 @@ class Staging:
     def _grown(have: int, need: int) -> int:
         return max(need, 2 * have, 1024)
 
-    def reserve(self, in_words: int, bit_words: int) -> None:
-        host_words = _round4(in_words) + bit_words
+    def reserve(self, host_words: int, in_words: int,
+                bit_words: int) -> None:
         if host_words > self.host.numel():
             self.host = torch.empty(
                 (self._grown(self.host.numel(), host_words),),
@@ -232,33 +254,47 @@ def free_staging() -> None:
     _staging.clear()
 
 
-def _host_round_trip(name: str, rows: np.ndarray, q: np.ndarray,
-                     per_row: bool, device) -> np.ndarray:
-    check_host(rows, q, per_row)
-    n, c = rows.shape
+def _host_round_trip(name: str, tables: Sequence[np.ndarray],
+                     q: np.ndarray, device) -> np.ndarray:
+    """One round trip of ``name``'s compare (see the module note)."""
+    per_row = name == "before_pairs"
+    check_host(tables, q, per_row)
+    n, c = tables[0].shape
     st = staging(device)
     if n == 0:
         return np.zeros((0,), bool)
     _check_width(c)
-    nc = n * c
-    # packed inputs, each region 16-byte aligned: [q | rows] or [rows | qs]
-    rows_off = 0 if per_row else _round4(c)
-    q_off = _round4(nc) if per_row else 0
-    in_words = (q_off + nc) if per_row else (rows_off + nc)
+    # the inputs' regions in dev_in (and, when packed, in the pinned
+    # buffer), each 16-byte aligned: [rows | qs], [q | rows] or
+    # [q | create | delete]
+    regions = (*tables, q) if per_row else (q, *tables)
+    offs, in_words = [], 0
+    for a in regions:
+        offs.append(in_words)
+        in_words = _round4(in_words + a.size)
     bit_words = (n + 31) // 32
-    st.reserve(in_words, bit_words)
+    packed = in_words * 4 <= PACK_LIMIT
+    bits_off = in_words if packed else 0        # in the pinned buffer
+    st.reserve(bits_off + bit_words, in_words, bit_words)
     buf = st.host_np
-    np.copyto(buf[rows_off:rows_off + nc].reshape(n, c), rows,
-              casting="unsafe")
-    np.copyto(buf[q_off:q_off + q.size].reshape(q.shape), q,
-              casting="unsafe")
-    bits_off = _round4(in_words)
+    for a, off in zip(regions, offs):
+        if packed:
+            np.copyto(buf[off:off + a.size].reshape(a.shape), a,
+                      casting="unsafe")
+        else:                   # pageable, on the stream the launch takes
+            st.dev_in[off:off + a.size].copy_(torch.from_numpy(
+                np.ascontiguousarray(a, np.int32)).view(-1))
     dev_in = st.dev_in.data_ptr()
+    ptr = [dev_in + off * 4 for off in offs]
+    if per_row:
+        rows, other, q_ptr = ptr[0], ptr[1], 0
+    else:
+        rows, other, q_ptr = ptr[1], ptr[2] if len(ptr) == 3 else 0, ptr[0]
     rc = build.launch_on(
         st.dev_in, _lib().mv_compare_host, st.host.data_ptr(), dev_in,
-        in_words * 4, dev_in + rows_off * 4, dev_in + q_off * 4,
+        in_words * 4 if packed else 0, rows, other, q_ptr,
         st.dev_bits.data_ptr(), st.host.data_ptr() + bits_off * 4, n, c,
-        int(per_row))
+        _MODES[name])
     if rc != 0:
         raise RuntimeError(f"mv_compare_host ({name}) failed with CUDA "
                            f"error {rc}")
@@ -272,11 +308,19 @@ def before_host(rows: np.ndarray, q: np.ndarray,
                 device="cuda") -> np.ndarray:
     """``rows[i] ≺ q`` on the card from host arrays: (N, C) integer rows,
     (C,) q -> (N,) numpy bool, in one round trip (see the module note)."""
-    return _host_round_trip("before", rows, q, False, device)
+    return _host_round_trip("before", (rows,), q, device)
 
 
 def before_pairs_host(rows: np.ndarray, qs: np.ndarray,
                       device="cuda") -> np.ndarray:
     """``rows[i] ≺ qs[i]`` on the card from two (N, C) host arrays ->
     (N,) numpy bool, in one round trip (see the module note)."""
-    return _host_round_trip("before_pairs", rows, qs, True, device)
+    return _host_round_trip("before_pairs", (rows,), qs, device)
+
+
+def visibility_host(create: np.ndarray, delete: np.ndarray, q: np.ndarray,
+                    device="cuda") -> np.ndarray:
+    """``create[i] ≺ q and not delete[i] ≺ q`` on the card from two (N, C)
+    host arrays and a (C,) q -> (N,) numpy bool, in one round trip (see
+    the module note)."""
+    return _host_round_trip("visibility", (create, delete), q, device)

@@ -6,10 +6,11 @@ CUDA tensor goes to the CUDA kernel (which launches or raises); a CPU
 tensor goes to the plain PyTorch version in :mod:`.ref`.  Nothing else
 chooses the route: the caller picks it by where its tensors live.
 
-The host entries (:func:`before_host`, :func:`before_pairs_host`) take
-numpy rows and return a numpy mask; the caller's ``device`` string picks
-the route: ``"cpu"`` runs the plain version, a CUDA device the kernel's
-one-round-trip host entry (``kernel.before_host``).
+The host entries (:func:`before_host`, :func:`before_pairs_host`,
+:func:`visibility_host`) take numpy rows and return a numpy mask; the
+caller's ``device`` string picks the route: ``"cpu"`` runs the plain
+version, a CUDA device the kernel's one-round-trip host entry
+(``kernel.before_host`` and its siblings).
 """
 
 from __future__ import annotations
@@ -24,12 +25,16 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return isinstance(t, torch.Tensor) and t.device.type == "cpu"
 
 
-def before_mask(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """(N, C) stamp rows + (C,) query -> (N,) bool ``row ≺ q`` mask."""
+def before_mask(rows: torch.Tensor, q: torch.Tensor,
+                bits: bool = False) -> torch.Tensor:
+    """(N, C) stamp rows + (C,) query -> (N,) bool ``row ≺ q`` mask, or
+    with ``bits`` its (ceil(N / 32),) int32 words (bit k = row k, least
+    significant bit first)."""
     if _on_cpu(rows):
         kernel.check((rows,), q, per_row=False)
-        return ref.before(rows, q)
-    return kernel.before(rows, q)
+        mask = ref.before(rows, q)
+        return ref.pack_bits(mask) if bits else mask
+    return kernel.before(rows, q, bits=bits)
 
 
 def visibility_mask(create_rows: torch.Tensor, delete_rows: torch.Tensor,
@@ -50,18 +55,17 @@ def before_pairs(rows: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return kernel.before_pairs(rows, qs)
 
 
-def _plain_host(plain, rows: np.ndarray, q: np.ndarray,
-                per_row: bool) -> np.ndarray:
-    kernel.check_host(rows, q, per_row)
-    return plain(torch.from_numpy(np.ascontiguousarray(rows, np.int32)),
-                 torch.from_numpy(np.ascontiguousarray(q, np.int32))).numpy()
+def _plain_host(plain, tables, q: np.ndarray, per_row: bool) -> np.ndarray:
+    kernel.check_host(tables, q, per_row)
+    return plain(*(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                   for a in (*tables, q))).numpy()
 
 
 def before_host(rows: np.ndarray, q: np.ndarray, device: str) -> np.ndarray:
     """(N, C) host stamp rows + (C,) query -> (N,) numpy bool ``row ≺ q``
     on ``device``."""
     if torch.device(device).type == "cpu":
-        return _plain_host(ref.before, rows, q, per_row=False)
+        return _plain_host(ref.before, (rows,), q, per_row=False)
     return kernel.before_host(rows, q, device)
 
 
@@ -70,5 +74,15 @@ def before_pairs_host(rows: np.ndarray, qs: np.ndarray,
     """(N, C) host rows + (N, C) per-row queries -> (N,) numpy bool
     ``rows[i] ≺ qs[i]`` on ``device``."""
     if torch.device(device).type == "cpu":
-        return _plain_host(ref.before_pairs, rows, qs, per_row=True)
+        return _plain_host(ref.before_pairs, (rows,), qs, per_row=True)
     return kernel.before_pairs_host(rows, qs, device)
+
+
+def visibility_host(create: np.ndarray, delete: np.ndarray, q: np.ndarray,
+                    device: str) -> np.ndarray:
+    """(N, C) host create/delete rows + (C,) query -> (N,) numpy bool
+    visibility on ``device``."""
+    if torch.device(device).type == "cpu":
+        return _plain_host(ref.visibility, (create, delete), q,
+                           per_row=False)
+    return kernel.visibility_host(create, delete, q, device)

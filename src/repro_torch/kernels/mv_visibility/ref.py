@@ -43,10 +43,10 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     the words are ``np.packbits(mask, bitorder="little")``, zero-padded)."""
     n = mask.shape[0]
     words = (n + 31) // 32
-    padded = torch.zeros((words * 32,), dtype=torch.int64,
-                         device=mask.device)
-    padded[:n] = mask.to(torch.int64)
-    weights = torch.ones((32,), dtype=torch.int64, device=mask.device)
-    weights = weights << torch.arange(32, device=mask.device)
-    w = (padded.view(words, 32) * weights).sum(dim=1)
-    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+    bits = torch.zeros((words * 32,), dtype=torch.uint8, device=mask.device)
+    bits[:n] = mask
+    bits = bits.view(words * 4, 8)
+    packed = bits[:, 0].clone()           # byte j: rows 8j .. 8j + 7
+    for k in range(1, 8):
+        packed |= bits[:, k] << k
+    return packed.view(torch.int32)       # little-endian words

@@ -64,10 +64,10 @@ def test_cuda_kernels_match_plain():
 
 
 def test_stamp_compare_forms_and_host_entries_match_plain():
-    """Card only: before / before_pairs in both output forms (bytes, and
-    bit words against ref.pack_bits), both host entries and visibility
-    == their plain versions at chip_smoke's cases (C in (3, 9), N in
-    STAMP_NS and 100,000, views whose address is not 16-byte aligned,
+    """Card only: before / before_pairs / visibility in both output forms
+    (bytes, and bit words against ref.pack_bits) and their three host
+    entries == their plain versions at chip_smoke's cases (C in (3, 9), N
+    in STAMP_NS and 100,000, views whose address is not 16-byte aligned,
     and C = 17 and 40); each form and entry is one counted launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
@@ -77,7 +77,8 @@ def test_stamp_compare_forms_and_host_entries_match_plain():
     for (n, c, off), _, checks in cs.stamp_edge_cases(0, "cuda", 100_000):
         assert not any(checks.values()), f"N={n} C={c} offset {off}: {checks}"
         n_cases += 1
-    assert kernel.launches == {"before": 3 * n_cases, "visibility": n_cases,
+    assert kernel.launches == {"before": 3 * n_cases,
+                               "visibility": 3 * n_cases,
                                "before_pairs": 3 * n_cases}
     assert kernel.before_host(np.zeros((0, 3), np.int32),
                               np.zeros(3, np.int32)).shape == (0,)
@@ -92,13 +93,16 @@ def test_host_entries_allocate_nothing_when_warm():
     memory_stats()["allocation.all.allocated"] unchanged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
-    rows, _, q, qs = case(1024, 3, 5)
+    rows, dele, q, qs = case(1024, 3, 5)
     want_b = ref.before(torch.from_numpy(rows), torch.from_numpy(q)).numpy()
     want_p = ref.before_pairs(torch.from_numpy(rows),
                               torch.from_numpy(qs)).numpy()
+    want_v = ref.visibility(torch.from_numpy(rows), torch.from_numpy(dele),
+                            torch.from_numpy(q)).numpy()
     for _ in range(3):
         kernel.before_host(rows, q)
         kernel.before_pairs_host(rows, qs)
+        kernel.visibility_host(rows, dele, q)
     torch.cuda.synchronize()
     kernel.reset_launches()
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
@@ -108,8 +112,10 @@ def test_host_entries_allocate_nothing_when_warm():
                                       want_b[:m])
         np.testing.assert_array_equal(
             kernel.before_pairs_host(rows[:m], qs[:m]), want_p[:m])
+        np.testing.assert_array_equal(
+            kernel.visibility_host(rows[:m], dele[:m], q), want_v[:m])
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
-    assert kernel.launches == {"before": 100, "visibility": 0,
+    assert kernel.launches == {"before": 100, "visibility": 100,
                                "before_pairs": 100}
     kernel.reset_launches()
 

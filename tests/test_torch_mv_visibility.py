@@ -1,20 +1,31 @@
 """Port's stamp-compare wrappers (``repro_torch.kernels.mv_visibility``)
-on CPU tensors == the reference's Pallas kernels run in interpret mode
-and ``writepath._np_before_pairs``, bit for bit.  The CUDA kernels
-themselves run only on the card (``tests/test_torch_kernels_cuda.py``
-and ``chip_smoke.py``)."""
+on CPU tensors and host arrays == the reference's Pallas kernels run in
+interpret mode, ``visibility_ref`` and ``writepath._np_before_pairs``,
+bit for bit, and the port's ``visible_edges_at`` == the reference's.
+The CUDA kernels themselves run only on the card
+(``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``)."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
+import repro.core as ref_core
+from repro.core import analytics as ref_analytics
 from repro.core import clock as ref_clock
 from repro.core import writepath as ref_wp
 from repro.kernels.mv_visibility import kernel as ref_kernel
 from repro.kernels.mv_visibility import ops as ref_ops
+import repro_torch.core as port_core
 from repro_torch.core import analytics as port_analytics
 from repro_torch.kernels.mv_visibility import kernel, ops, ref
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 NO_STAMP = ref_clock.NO_STAMP
 
@@ -258,3 +269,102 @@ def test_snapshot_eval_merged_call_equals_two_calls():
     cb0, db0 = port_analytics.SnapshotEngine._eval(
         eng, empty, empty, None, None, q, None, True, [])
     assert cb0.shape == db0.shape == (0,)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1023, 1025])
+@pytest.mark.parametrize("c", [2, 3, 4, 5, 6, 7, 8, 9, 17])
+def test_visibility_cpu_routes_match_reference(n, c):
+    """ops.visibility_host(..., "cpu") and ops.visibility_mask on CPU
+    tensors == visibility_pallas in interpret mode and visibility_ref
+    (through the reference's ops.visibility_mask), at every compiled
+    width of the kernel and one it reads at run time, with NO_STAMP rows
+    and tied epochs."""
+    create, delete, q, _ = case(n, c, 13 * n + c)
+    if n >= 32:                 # both kinds of row in each table
+        for rows in (create, delete):
+            assert (rows[:, 0] == NO_STAMP).any()
+            assert (rows[:, 0] == q[0]).any()
+    args = (jnp.asarray(create), jnp.asarray(delete), jnp.asarray(q))
+    want = np.asarray(ref_ops.visibility_mask(*args, interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(ref_ops.visibility_mask(*args, use_ref=True)), want)
+    got_host = ops.visibility_host(create, delete, q, "cpu")
+    assert isinstance(got_host, np.ndarray)
+    assert got_host.dtype == bool and got_host.shape == (n,)
+    np.testing.assert_array_equal(got_host, want)
+    np.testing.assert_array_equal(
+        ops.visibility_mask(T(create), T(delete), T(q)).numpy(), want)
+    if n > 1:                   # a row view and int64 input take it too
+        np.testing.assert_array_equal(
+            ops.visibility_host(create[1:].astype(np.int64), delete[1:], q,
+                                "cpu"), want[1:])
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1023, 1025])
+def test_pack_bits_of_visibility_matches_numpy_packbits(n):
+    """The plain twin of visibility's bit form, ref.pack_bits over
+    ref.visibility, gives np.packbits(bitorder="little")'s bytes."""
+    create, delete, q, _ = case(n, 3, 17 * n)
+    mask = ref.visibility(T(create), T(delete), T(q))
+    got = ref.pack_bits(mask)
+    assert got.dtype == torch.int32 and got.shape == ((n + 31) // 32,)
+    want = np.packbits(mask.numpy(), bitorder="little")
+    np.testing.assert_array_equal(got.numpy().view(np.uint8),
+                                  np.pad(want, (0, -want.size % 4)))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "q_shape", "list",
+                                 "mixed"])
+def test_visibility_host_rejects_bad_input(bad):
+    create, delete, q, qs = case(16, 3, 1)
+    if bad == "dtype":
+        create = create.astype(np.float32)
+    elif bad == "shape":
+        create = create.ravel()
+    elif bad == "q_shape":
+        q = qs
+    elif bad == "list":
+        delete = delete.tolist()
+    elif bad == "mixed":
+        delete = delete[:8]
+    with pytest.raises((TypeError, ValueError)):
+        ops.visibility_host(create, delete, q, "cpu")
+    with pytest.raises((TypeError, ValueError)):
+        kernel.visibility_host(create, delete, q, "cpu")  # card entry
+
+
+def test_visible_edges_at_matches_reference_on_a_seeded_stream():
+    """One seeded stream (creates, edge deletes, GC) through the reference
+    Weaver and the port's on the CPU: at each program's stamp the port's
+    visible_edges_at(..., device="cpu") == the reference's (edges and
+    mask), and its mask == ops.visibility_host over the raw rows."""
+    steps = chip_smoke.make_stream(9, 40, avg_degree=6, n_tx=30, n_prog=3,
+                                   chunk=64)
+    kw = dict(n_gatekeepers=2, n_shards=2, seed=9)
+    _, w_ref = chip_smoke.run_stream(
+        ref_core, ref_analytics, ref_core.WeaverConfig(**kw), steps)
+    _, w_port = chip_smoke.run_stream(
+        port_core, port_analytics,
+        port_core.WeaverConfig(device="cpu", **kw), steps, device="cpu")
+    n_checked = 0
+    for name in ("count_edges", "get_edges"):
+        _, at_ref, _ = w_ref.run_program(name, [("u0", None)])
+        _, at_port, _ = w_port.run_program(name, [("u0", None)])
+        ga_ref = ref_analytics.snapshot_arrays(w_ref, at_ref, keep_raw=True)
+        ga = port_analytics.snapshot_arrays(w_port, at_port, keep_raw=True)
+        want = ref_analytics.visible_edges_at(ga_ref, at_ref, 2)
+        got = port_analytics.visible_edges_at(ga, at_port, 2, device="cpu")
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(x))
+        np.testing.assert_array_equal(
+            got[2], ops.visibility_host(ga.edge_create, ga.edge_delete,
+                                        port_analytics.clock.pack(at_port, 2),
+                                        "cpu"))
+        assert got[2].any() and not got[2].all()
+        n_checked += got[2].size
+    assert n_checked > 100
+    ga.edge_create = ga.edge_create[:0]
+    ga.edge_delete = ga.edge_delete[:0]
+    src, dst, mask = port_analytics.visible_edges_at(ga, at_port, 2,
+                                                     device="cpu")
+    assert src.size == dst.size == mask.size == 0 and mask.dtype == bool
