@@ -40,9 +40,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    transactions, node programs, GC, snapshots and ``visible_edges_at``.
    The same stream runs through a port ``Weaver(device="cpu")`` in a
    worker process at the same time; results, counters and snapshot
-   arrays must be identical.  Then the card run's column plane answers
-   its last query in the byte and the bit form, timed part by part
-   (``plane_mask_forms``); the two forms' masks must be equal.
+   arrays must be identical.  Its serving steps (``serve_loops``) go
+   through the package's ``GraphQueryServer``: a closed loop of 64
+   clients over 20,000 TAO requests (``synth.tao_workload``, read share
+   0.998), one of 16 clients over 4,000 at 0.75, and an open loop of
+   5,000 at half the first loop's simulated throughput; each loop's
+   returned dict and every request's ok flag and simulated latency must
+   be identical between card and twin, and ``before`` and
+   ``before_pairs`` must both launch inside them (counts set to 0 just
+   before the serving steps and read just after).  Then the card run's
+   column plane answers its last query in the byte and the bit form,
+   timed part by part (``plane_mask_forms``); the two forms' masks must
+   be equal.
+3c. Snapshot traversals on the card: on phase 3's card Weaver, over
+   ``snapshot_arrays`` at a fresh program stamp, ``bfs_levels_ga`` from
+   u0, ``reachable``, ``connected_components_ga``, ``pagerank_ga``,
+   ``sssp_weighted`` (seeded integer weights 1-9 as fp32) and
+   ``clustering_coefficients_padded`` (max_deg 256), each held to a host
+   oracle (scipy's BFS, components and Dijkstra exactly; an fp64 numpy
+   power iteration for pagerank to rtol 1e-4, atol 1e-9; the reference's
+   per-edge table build and a numpy count for clustering, exactly, at
+   2,000 sampled vertices and the 20 of largest degree) and timed with
+   CUDA events beside its bound.
 3b. GNN training over the live snapshot: the main deployment's card
    Weaver feeds ``DynamicGraphPipeline`` batches (a writer tx commits
    between batches); each batch goes through ``mp.propagate_matmul`` on
@@ -52,7 +71,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the same batches, on the CPU; logits, losses and parameters must
    agree at every step.  Then a smaller deployment without the column
    plane repeats phase 3, and its final snapshot is also held against
-   the per-object Python snapshot oracle.
+   the per-object Python snapshot oracle.  Last, the database's entry
+   points (``launch.serve --mode graph`` and the examples ``quickstart``,
+   ``social_serve`` and ``coingraph``) run with ``--device cuda`` and
+   ``--device cpu`` in this process: each exits 0, the card's calls
+   launch the stamp compares, and both print the same text.
 2c. ``flash_attention`` against its plain version in fp32 on the card,
    each of its three variants (bf16 ``wgmma`` prefill, split-KV decode,
    fp32 CUDA-core prefill) at every kind of case: the reference tests'
@@ -104,6 +127,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
+import io
 import json
 import multiprocessing
 import statistics
@@ -1548,13 +1574,30 @@ def phase_gnn(w, seed: int, steps: int, device: str = "cuda") -> dict:
 # tests/test_torch_weaver.py, which imports make_stream / run_stream)
 # ---------------------------------------------------------------------------
 
+def serve_loops(n: int) -> list:
+    """The serving steps' client fleets for ``n`` requests in the first
+    loop: (loop, clients or rate factor, requests, read share).  A closed
+    loop of 64 clients at TAO's published read share (0.998, the
+    reference ``serve_graph``'s setting), one of 16 clients at 0.75 so
+    that writes contend, and an open loop at half the first loop's
+    simulated throughput."""
+    if n <= 0:
+        return []
+    return [("closed", 64, n, 0.998), ("closed", 16, max(1, n // 5), 0.75),
+            ("open", 0.5, max(1, n // 4), 0.998)]
+
+
 def make_stream(seed: int, n_users: int, avg_degree: int = 14,
                 n_tx: int = 300, n_prog: int = 50, chunk: int = 512,
-                kill: str = None, gc_period: float = 0.05) -> list:
+                kill: str = None, gc_period: float = 0.05,
+                serve_requests: int = 0) -> list:
     """A seeded op stream: bulk load in ``chunk``-op transactions, then a
     shuffled mix of ``n_tx`` small transactions and ``n_prog`` of each
-    node program, with GC, async submissions, snapshots and (optionally)
-    a shard kill plus promotion.  Edges are named by creation index."""
+    node program, with GC, async submissions, snapshots, the serving
+    steps of :func:`serve_loops` (``serve_requests`` > 0: TAO requests
+    from ``synth.tao_workload`` on live vertices, through the package's
+    ``GraphQueryServer``) and (optionally) a shard kill plus promotion.
+    Edges are named by creation index."""
     rng = np.random.default_rng(seed)
     users = [f"u{i}" for i in range(n_users)]
     edges = synth.social_graph(rng, n_users, avg_degree)
@@ -1617,6 +1660,10 @@ def make_stream(seed: int, n_users: int, avg_degree: int = 14,
               prog("count_edges"), ("snap", False),
               ("async", [prog(p)[1:] for p in PROGRAMS])]
     steps += mixed[half:]
+    live = [u for u in users if u not in deleted]
+    loops = [(loop, arg, synth.tao_workload(rng, n, read_frac, vertices=live))
+             for loop, arg, n, read_frac in serve_loops(serve_requests)]
+    steps += [("serve", loops)] if loops else []
     steps += [prog("count_edges"), ("snap", True)]
     if kill is not None:
         steps += [("kill", kill), prog("traverse"), prog("count_edges"),
@@ -1628,19 +1675,89 @@ def _stamp(s):
     return None if s is None else (s.epoch, tuple(s.clock), s.gk, s.ctr)
 
 
-def run_stream(core, analytics_mod, cfg, steps: list, device=None) -> list:
+def tao_request(w, ops: list, i: int) -> tuple:
+    """Request ``i`` of a TAO op list as the reference's ``serve_graph``
+    maps it: reads are node programs, ``create_edge`` a one-op tx, and
+    ``delete_edge`` deletes the first edge ``read_vertex`` shows, else
+    touches a property (as ``examples/social_serve.py`` does)."""
+    op = ops[i]
+    if op["type"] in ("get_edges", "count_edges", "get_node"):
+        return "prog", (op["type"], [(op["v"], None)])
+    tx = w.begin_tx()
+    if op["type"] == "create_edge":
+        tx.create_edge(op["v"], op["u"])
+    else:
+        ed = w.read_vertex(op["v"])
+        if ed and ed["edges"]:
+            tx.delete_edge(op["v"], next(iter(ed["edges"])))
+        else:
+            tx.set_vertex_prop(op["v"], "touch", i)
+    return "tx", tx
+
+
+def serve_loop(server, w, loop_ops: tuple, first: list) -> tuple:
+    """One client fleet of a serving step through ``server`` (a
+    ``GraphQueryServer``): the loop's returned dict, plus each request's
+    ``(index, ok, latency)`` in completion order.  An open loop's rate is
+    its factor times the step's first closed loop's simulated throughput
+    (``first``)."""
+    loop, arg, ops = loop_ops
+    done = []
+    cur = {}
+
+    def make_request(i):
+        cur["i"] = i
+        return tao_request(w, ops, i)
+
+    issue = server._issue
+
+    def recorded(kind, payload, on_done):
+        i = cur["i"]          # both loops call make_request(i) just before
+
+        def _done(ok, latency):
+            done.append((i, ok, latency))
+            on_done(ok, latency)
+
+        issue(kind, payload, _done)
+
+    server._issue = recorded
+    try:
+        if loop == "closed":
+            res = server.run_closed_loop(arg, len(ops), make_request)
+            first.append(res["throughput_per_s"])
+        else:
+            res = server.run_open_loop(arg * first[0], len(ops),
+                                       make_request)
+    finally:
+        server._issue = issue
+    return ("serve", loop, res, done)
+
+
+def run_stream(core, analytics_mod, cfg, steps: list, device=None,
+               around_serve=None) -> list:
     """Run ``steps`` through a fresh ``core.Weaver(cfg)`` and return one
     comparable record per step plus the final counters.  ``core`` and
-    ``analytics_mod`` are the package's modules, so the same driver runs
-    the port and (in the tests) the JAX reference."""
+    ``analytics_mod`` are the package's modules, and serving steps go
+    through that package's ``runtime.GraphQueryServer``, so the same
+    driver runs the port and (in the tests) the JAX reference.
+    ``around_serve``, a context manager factory, is entered around each
+    serving step."""
     w = core.Weaver(cfg)
+    server_cls = importlib.import_module(
+        core.__name__.split(".")[0] + ".runtime").GraphQueryServer
+    server = server_cls(w)
     vis_kw = {} if device is None else {"device": device}
     handles = []
     out = []
     last = None
     for step in steps:
         kind = step[0]
-        if kind == "tx":
+        if kind == "serve":
+            with (around_serve or contextlib.nullcontext)():
+                first = []
+                out += [serve_loop(server, w, loop, first)
+                        for loop in step[1]]
+        elif kind == "tx":
             t = w.begin_tx()
             for op in step[1]:
                 if op[0] == "cv":
@@ -1828,49 +1945,99 @@ def plane_mask_forms(plane, reps: int = 20) -> dict:
 
 
 def run_on(device: str, seed: int, n_users: int, plane: bool, n_prog: int,
-           n_tx: int):
+           n_tx: int, serve_requests: int = 0):
     """One run of the deployment's seeded stream on ``device``: (steps,
     records, launch counts of this run, host seconds, entry-point line,
-    the Weaver)."""
+    the serving steps' figures (``serve_clock``), the Weaver)."""
     steps = make_stream(seed, n_users, n_tx=n_tx, n_prog=n_prog,
-                        gc_period=GC_PERIOD)
+                        gc_period=GC_PERIOD, serve_requests=serve_requests)
     cfg = core.WeaverConfig(n_gatekeepers=2, n_shards=4, device=device,
                             device_shard_columns=plane,
                             write_group_commit=1e-3, seed=seed,
                             gc_period=GC_PERIOD,
                             wal_checkpoint_every=WAL_CHECKPOINT_EVERY)
     mvk.reset_launches()                     # counts of THIS run only
+    serving = {}
     t0 = time.perf_counter()
     with BoundaryClock() as bc:
-        recs, w = run_stream(core, analytics, cfg, steps, device=device)
-        if device == "cuda":
-            torch.cuda.synchronize()
+        recs, w = run_stream(core, analytics, cfg, steps, device=device,
+                             around_serve=lambda: serve_clock(device,
+                                                              serving))
+        sync(device)
     secs = time.perf_counter() - t0
-    return steps, recs, dict(mvk.launches), secs, bc.line(), w
+    return steps, recs, dict(mvk.launches), secs, bc.line(), serving, w
+
+
+@contextlib.contextmanager
+def serve_clock(device: str, out: dict):
+    """Around the serving steps: the stamp compares' launch counts set to
+    0 before and read after (then added back to the run's), host wall
+    clock to a synchronise, and the entry points' line, into ``out``."""
+    saved = dict(mvk.launches)
+    mvk.reset_launches()
+    t0 = time.perf_counter()
+    with BoundaryClock() as bc:
+        yield
+        sync(device)
+    out.update(secs=time.perf_counter() - t0, counts=dict(mvk.launches),
+               line=bc.line())
+    for k, v in saved.items():
+        mvk.launches[k] += v
 
 
 def cpu_twin(*args):
-    """``run_on("cpu", ...)`` for a worker process (no Weaver returned)."""
-    steps, recs, counts, secs, line, _ = run_on("cpu", *args)
-    return len(steps), recs, counts, secs, line
+    """``run_on("cpu", ...)`` for a worker process (the number of steps
+    in place of the steps; no Weaver returned)."""
+    steps, *rest, _ = run_on("cpu", *args)
+    return (len(steps), *rest)
+
+
+def serve_summary(label: str, device: str, recs: list, serving: dict) -> None:
+    """Print the serving steps' host figures and each loop's simulated
+    goodput, p50 and p99."""
+    loops = [r for r in recs if r[0] == "serve"]
+    if not loops:
+        return
+    n = sum(len(r[3]) for r in loops)
+    print(f"{label} device={device}: serving steps {n} requests in "
+          f"{serving['secs']:.2f} s host wall clock "
+          f"({serving['secs'] / n * 1e6:.1f} us host per request), "
+          f"launches {serving['counts']}", flush=True)
+    print(f"{label} device={device}: serving entry points "
+          f"{serving['line']}", flush=True)
+    if device != "cuda":
+        return
+    for r in loops:
+        res = r[2]
+        lat = np.asarray(res["latencies_s"]) * 1e3
+        rate = (f" offered {res['offered_per_s']:.1f}/s"
+                if "offered_per_s" in res else "")
+        print(f"{label} serving {r[1]} loop (simulated):{rate} issued "
+              f"{res['issued']} ok {res['ok']} goodput "
+              f"{res['goodput_per_s']:.1f}/s p50 "
+              f"{np.percentile(lat, 50):.3f} ms p99 "
+              f"{np.percentile(lat, 99):.3f} ms", flush=True)
 
 
 def deployment(label: str, seed: int, n_users: int, plane: bool,
-               n_prog: int, n_tx: int, oracle: bool, keep: bool = False):
+               n_prog: int, n_tx: int, oracle: bool, keep: bool = False,
+               serve_requests: int = 0):
     """Run one seeded stream on the card and, at the same time in a
     worker process, on the CPU; compare the two runs.  Returns the card
-    run's launch counts and, when ``keep``, its Weaver (else None)."""
-    args = (seed, n_users, plane, n_prog, n_tx)
+    run's launch counts, its Weaver when ``keep`` (else None) and its
+    serving steps' launch counts (None without serving steps)."""
+    args = (seed, n_users, plane, n_prog, n_tx, serve_requests)
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
         twin = pool.submit(cpu_twin, *args)
-        steps, recs, counts, secs, line, w = run_on("cuda", *args)
+        steps, recs, counts, secs, line, serving, w = run_on("cuda", *args)
         n_load = sum(1 for s in steps if s[0] == "tx" and len(s[1]) > 64)
         print(f"{label} device=cuda: {len(steps)} steps ({n_load} load "
               f"txs) in {secs:.2f} s host wall clock, launches {counts}",
               flush=True)
         print(f"{label} device=cuda: stamp-compare entry points {line}",
               flush=True)
+        serve_summary(label, "cuda", recs, serving)
         n_e = sum(c.n_e for c in (sh.partition.columns for sh in w.shards)
                   if c is not None)
         print(f"{label}: {n_e} edge rows resident, plane stats "
@@ -1888,12 +2055,14 @@ def deployment(label: str, seed: int, n_users: int, plane: bool,
                   flush=True)
         if not keep:
             w = None
-        n_steps, cpu_recs, cpu_counts, cpu_secs, cpu_line = twin.result()
+        (n_steps, cpu_recs, cpu_counts, cpu_secs, cpu_line,
+         cpu_serving) = twin.result()
     print(f"{label} device=cpu (worker process, concurrent): {n_steps} "
           f"steps in {cpu_secs:.2f} s host wall clock, launches "
           f"{cpu_counts}", flush=True)
     print(f"{label} device=cpu: stamp-compare entry points {cpu_line}",
           flush=True)
+    serve_summary(label, "cpu", cpu_recs, cpu_serving)
     bad = diff_records(recs, cpu_recs)
     if bad:
         raise PhaseError(f"{label}: CUDA run != CPU run:\n"
@@ -1903,8 +2072,219 @@ def deployment(label: str, seed: int, n_users: int, plane: bool,
                          f"{cpu_counts}")
     print(f"{label}: CUDA run == CPU run over {len(steps)} steps "
           f"(results, TxResults, counters, snapshot arrays, "
-          f"visible_edges_at)", flush=True)
-    return counts, w
+          f"visible_edges_at{', serving loops' if serving else ''})",
+          flush=True)
+    return counts, w, serving.get("counts")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: snapshot traversals on the card, against host oracles
+# ---------------------------------------------------------------------------
+
+CC_MAX_DEG = 256      # clustering's padded rows: the graph's largest
+#                       out-degree (~30k) would make a ~12 GB table
+CC_SAMPLE = 2000      # clustering vertices held to the oracle (plus the
+#                       20 of largest degree)
+PR_RTOL, PR_ATOL = 1e-4, 1e-9   # fp32 card pagerank vs fp64 numpy: 20
+#                                 rounds of sums of ~14 terms each
+
+
+def padded_table(src: np.ndarray, dst: np.ndarray, n: int, max_deg: int):
+    """The reference's padded neighbour table, built by its per-edge loop
+    (the oracle of ``clustering_coefficients_padded``'s vectorised
+    build): rows in stable ``argsort(src)`` order, self-loops skipped, at
+    most ``max_deg`` per row, sorted, padded with ``n``."""
+    table = np.full((n, max_deg), n, dtype=np.int32)
+    counts = np.zeros(n, dtype=np.int64)
+    for e in np.argsort(src, kind="stable").tolist():
+        u, v = int(src[e]), int(dst[e])
+        if u == v or counts[u] >= max_deg:
+            continue
+        table[u, counts[u]] = v
+        counts[u] += 1
+    table.sort(axis=1)
+    return table, counts
+
+
+def clustering_oracle(table: np.ndarray, counts: np.ndarray, n: int,
+                      verts: np.ndarray) -> np.ndarray:
+    """Clustering coefficients of ``verts`` over the padded table, in
+    numpy: links = the row's entries found in each listed neighbour's
+    row, over k(k - 1) in fp32."""
+    out = np.zeros(verts.size, np.float32)
+    for j, u in enumerate(verts.tolist()):
+        row = table[u][table[u] < n]
+        if row.size == 0:
+            continue
+        hit = (table[row][:, :, None] == row[None, None, :]).any(axis=1)
+        k = int(counts[u])
+        if k >= 2:
+            out[j] = np.float32(hit.sum()) / np.float32(k * (k - 1))
+    return out
+
+
+def phase_traversals(w, seed: int, reps: int,
+                     device: str = "cuda") -> dict:
+    """Phase 3c: the snapshot traversals of ``core.analytics`` on
+    ``device`` over ``snapshot_arrays`` of the deployment's last program
+    stamp, each held to a host oracle (exact but pagerank) and timed with
+    CUDA events beside its bound: the edge arrays' bytes (int32 src and
+    dst, and sssp's fp32 weights) per round times the rounds, over
+    3.35 TB/s (clustering: its padded table's bytes once)."""
+    from scipy.sparse import coo_matrix, csgraph
+
+    _, stamp, _ = w.run_program("count_edges", [("u0", None)])
+    ga = analytics.snapshot_arrays(w, stamp)
+    n, src, dst = ga.n_nodes, ga.edge_src, ga.edge_dst
+    e = int(src.size)
+    rng = np.random.default_rng(seed)
+    weights = rng.integers(1, 10, e).astype(np.float32)
+    s_d = torch.from_numpy(src).to(device)
+    d_d = torch.from_numpy(dst).to(device)
+    w_d = torch.from_numpy(weights).to(device)
+    i0 = ga.index["u0"]
+    target = int(rng.integers(n))
+    inf = int(analytics.INF)
+
+    # host oracles
+    unw = coo_matrix((np.ones(e), (src, dst)), shape=(n, n)).tocsr()
+    want_bfs = csgraph.shortest_path(unw, unweighted=True, indices=i0)
+    want_bfs = np.where(np.isinf(want_bfs), inf, want_bfs).astype(np.int32)
+    _, comp = csgraph.connected_components(unw, directed=False)
+    first = np.full(comp.max() + 1, n, np.int64)
+    np.minimum.at(first, comp, np.arange(n))
+    want_cc = first[comp].astype(np.int32)
+    key = src.astype(np.int64) * n + dst          # parallel edges: min weight
+    order = np.lexsort((weights, key))
+    key_s, w_s = key[order], weights[order]
+    keep = np.r_[True, key_s[1:] != key_s[:-1]]
+    wmat = coo_matrix((w_s[keep].astype(np.float64),
+                       (key_s[keep] // n, key_s[keep] % n)),
+                      shape=(n, n)).tocsr()
+    want_sssp = csgraph.dijkstra(wmat, indices=i0)
+    want_sssp = np.where(np.isinf(want_sssp), 3.4e38,
+                         want_sssp).astype(np.float32)
+    deg = np.maximum(np.bincount(src, minlength=n), 1).astype(np.float64)
+    want_pr = np.full(n, 1.0 / n)
+    for _ in range(20):
+        want_pr = (1.0 - 0.85) / n + 0.85 * np.bincount(
+            dst, weights=want_pr[src] / deg[src], minlength=n)
+    table, counts = padded_table(src, dst, n, CC_MAX_DEG)
+    verts = np.unique(np.concatenate([
+        rng.choice(n, min(CC_SAMPLE, n), replace=False),
+        np.argsort(-counts, kind="stable")[:20]]))
+    want_clu = clustering_oracle(table, counts, n, verts)
+
+    def exact(want, at=slice(None)):
+        return lambda got: int(np.count_nonzero(got[at] != want))
+
+    # name: (call, bytes per round, rounds from its segment reductions,
+    #        mismatches against the oracle)
+    runs = {
+        "bfs_levels_ga": (
+            lambda: analytics.bfs_levels_ga(ga, [i0], device=device),
+            8 * e, lambda k: k, exact(want_bfs)),
+        "connected_components_ga": (
+            lambda: analytics.connected_components_ga(ga, device=device),
+            8 * e, lambda k: k // 2, exact(want_cc)),
+        "pagerank_ga": (
+            lambda: analytics.pagerank_ga(ga, device=device),
+            8 * e, lambda k: k - 1,
+            lambda got: int(np.count_nonzero(~np.isclose(
+                got, want_pr, rtol=PR_RTOL, atol=PR_ATOL)))),
+        "sssp_weighted": (
+            lambda: analytics.sssp_weighted(s_d, d_d, w_d, n, [i0]),
+            12 * e, lambda k: k, exact(want_sssp)),
+        "clustering_coefficients_padded": (
+            lambda: analytics.clustering_coefficients_padded(
+                s_d, d_d, n, CC_MAX_DEG),
+            4 * n * CC_MAX_DEG, lambda k: 1, exact(want_clu, verts)),
+    }
+    out = {}
+    reduce_ = analytics._segment_reduce
+    for name, (fn, nbytes, rounds_of, mismatches) in runs.items():
+        calls = []
+
+        def counted(*a, **kw):
+            calls.append(1)
+            return reduce_(*a, **kw)
+
+        analytics._segment_reduce = counted
+        try:
+            got = fn().cpu().numpy()
+        finally:
+            analytics._segment_reduce = reduce_
+        bad = mismatches(got)
+        max_err = (float(np.max(np.abs(got - want_pr)))
+                   if name == "pagerank_ga" else 0.0)
+        if bad:
+            raise PhaseError(f"traversals: {name} differs from its oracle at "
+                             f"{bad} vertices (max |err| {max_err})")
+        rounds = rounds_of(len(calls))
+        ms = time_ms(fn, reps=reps, warmup=1) if device == "cuda" else None
+        bound = nbytes * rounds / HBM_BYTES_PER_S * 1e3
+        out[name] = {"rounds": rounds, "ms": ms, "bound_ms": bound,
+                     "max_abs_err": max_err}
+        timed = "not timed" if ms is None else f"{ms:.4f} ms"
+        print(f"traversals: {name} == host oracle (max |err| {max_err:.3g}); "
+              f"{rounds} rounds, {timed}, bound {bound:.4f} ms (bytes)",
+              flush=True)
+    got = analytics.reachable(s_d, d_d, n, i0, target)
+    if got != bool(want_bfs[target] < inf):
+        raise PhaseError(f"traversals: reachable(u0, {target}) = {got}")
+    print(f"traversals over {n} vertices, {e} edges: reachable(u0 -> "
+          f"{target}) = {got} as the oracle; eccentricity from u0 "
+          f"{int(want_bfs[want_bfs < inf].max())}, {int(comp.max()) + 1} "
+          f"components; clustering held at {verts.size} vertices",
+          flush=True)
+    return out
+
+
+# (module, argv) of the database's entry points, each run with --device
+# cuda and --device cpu
+ENTRY_POINTS = (
+    ("repro_torch.launch.serve", ["--mode", "graph"]),
+    ("repro_torch.examples.quickstart", []),
+    ("repro_torch.examples.social_serve", []),
+    ("repro_torch.examples.coingraph", []),
+)
+
+
+def phase_entry_points(devices=("cuda", "cpu")) -> dict:
+    """Each database entry point's ``main(argv + ["--device", d])`` for
+    each device in this process: every call must exit 0, the card's must
+    launch the stamp compares, and all must print the same text (their
+    simulated figures).  Returns the launch counts of each card call."""
+    counts = {}
+    for mod, argv in ENTRY_POINTS:
+        main_fn = importlib.import_module(mod).main
+        outs = {}
+        for dev in devices:
+            buf = io.StringIO()
+            mvk.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main_fn(argv + ["--device", dev])
+            sync(dev)
+            secs = time.perf_counter() - t0
+            if rc != 0:
+                raise PhaseError(f"entry points: {mod} --device {dev} "
+                                 f"exited {rc}")
+            outs[dev] = buf.getvalue()
+            if dev == "cuda":
+                counts[mod] = dict(mvk.launches)
+                if not any(counts[mod].values()):
+                    raise PhaseError(f"entry points: {mod} launched no "
+                                     f"stamp compare on the card")
+            print(f"entry points: {' '.join([mod] + argv)} --device {dev}: "
+                  f"exit 0 in {secs:.2f} s host wall clock", flush=True)
+        if len(set(outs.values())) != 1:
+            raise PhaseError(f"entry points: {mod} printed differently on "
+                             f"{' and '.join(devices)}: {outs}")
+        text = outs[devices[0]].strip().splitlines()
+        print(f"entry points: {mod} printed the same {len(text)} lines on "
+              f"{' and '.join(devices)}; first: {text[0][:120]}", flush=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2223,6 +2603,10 @@ def main(argv=None) -> int:
     ap.add_argument("--n-prog", type=int, default=50,
                     help="node programs of each kind per deployment")
     ap.add_argument("--n-tx", type=int, default=300)
+    ap.add_argument("--serve-requests", type=int, default=20_000,
+                    help="requests of the main deployment's first serving "
+                         "loop (the second takes a fifth, the open loop a "
+                         "quarter)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--mp-n", type=int, default=OGB_PRODUCTS[0],
                     help="nodes of the full-size segment_mp case "
@@ -2270,14 +2654,25 @@ def main(argv=None) -> int:
                                big_reps)
     bag_timing = phase_bag(args.seed, args.reps)
 
-    main_counts, w = deployment("main", args.seed, args.users, plane=True,
-                                n_prog=args.n_prog, n_tx=args.n_tx,
-                                oracle=False, keep=True)
+    main_counts, w, serve_counts = deployment(
+        "main", args.seed, args.users, plane=True, n_prog=args.n_prog,
+        n_tx=args.n_tx, oracle=False, keep=True,
+        serve_requests=args.serve_requests)
+    missing = [k for k in ("before", "before_pairs")
+               if not (serve_counts or {}).get(k)]
+    if missing:
+        raise PhaseError(f"main: kernels {missing} were never launched in "
+                         f"the serving steps: {serve_counts}")
     forms = plane_mask_forms(w.device_plane, args.reps)
     print(f"main: plane before_all over {forms['rows']} resident rows "
           f"({forms['synced_rows']} synced), median host ms of {args.reps} "
           f"calls: bytes {json.dumps(forms['bytes'])}, bits "
           f"{json.dumps(forms['bits'])}", flush=True)
+    # phase 3c, on the card Weaver before phase 3b writes to it
+    t0 = time.perf_counter()
+    phase_traversals(w, args.seed, max(2, args.reps // 4))
+    print(f"traversals phase: {time.perf_counter() - t0:.2f} s host wall "
+          f"clock", flush=True)
     # the GNN slice's path, driven on the main deployment's card Weaver
     mvk.reset_launches()
     smpk.reset_launches()
@@ -2299,10 +2694,14 @@ def main(argv=None) -> int:
         raise PhaseError(f"gnn: segment_mp orders {gnn_counts}, expected "
                          f"{want}")
     del w
-    small_counts, _ = deployment("host-global", args.seed + 1,
-                                 args.small_users, plane=False,
-                                 n_prog=max(1, args.n_prog // 5),
-                                 n_tx=max(1, args.n_tx // 5), oracle=True)
+    small_counts, *_ = deployment("host-global", args.seed + 1,
+                                  args.small_users, plane=False,
+                                  n_prog=max(1, args.n_prog // 5),
+                                  n_tx=max(1, args.n_tx // 5), oracle=True)
+    t0 = time.perf_counter()
+    phase_entry_points()
+    print(f"entry points phase: {time.perf_counter() - t0:.2f} s host wall "
+          f"clock", flush=True)
     for label, counts in (("main", main_counts),
                           ("host-global", small_counts)):
         missing = [k for k in ("before", "before_pairs") if not counts[k]]

@@ -60,8 +60,8 @@ def turn(root: Path) -> dict:
 
     cs.run_on = timed_run_on
     cs.build.build_all()
-    _, w = cs.deployment("main", SEED, USERS, plane=True, n_prog=N_PROG,
-                         n_tx=N_TX, oracle=False, keep=True)
+    w = cs.deployment("main", SEED, USERS, plane=True, n_prog=N_PROG,
+                      n_tx=N_TX, oracle=False, keep=True)[1]
     cs.smpk.reset_launches()
     t0 = time.perf_counter()
     gnn = cs.phase_gnn(w, SEED, GNN_STEPS)

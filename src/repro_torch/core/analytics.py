@@ -41,6 +41,16 @@ are truly concurrent with the query stamp (rare: the query stamp is
 normally issued after the writes committed) are refined through the
 timeline oracle exactly like the shard path would, but batched into one
 ``order_events`` request per snapshot instead of one per object.
+
+Traversals
+----------
+``bfs_levels``, ``reachable``, ``connected_components``, ``pagerank``,
+``sssp_weighted`` and ``clustering_coefficients_padded`` (with the
+``_ga`` forms over a snapshot) are the reference's jitted frontier
+programs as torch loops on their arguments' device: segment reductions
+are ``scatter_reduce`` / ``index_add_`` with ``jax.ops.segment_*``'s
+identities, and a relax-until-stable loop reads its ``changed`` flag
+from the device once per round.
 """
 
 from __future__ import annotations
@@ -1035,6 +1045,160 @@ def snapshot_arrays_python(weaver, at: Stamp, refine_concurrent: bool = True,
     return ga
 
 
+# ---------------------------------------------------------------------------
+# Frontier traversals over snapshot arrays, as torch loops on the arguments'
+# device (the reference's jitted ``while_loop`` / ``fori_loop`` bodies).
+# ---------------------------------------------------------------------------
+
+def _tensor(a, device=None, dtype=None) -> torch.Tensor:
+    """``a`` as a tensor: a tensor stays on its device unless ``device``
+    is given; anything else (numpy, a list) goes to ``device`` or the
+    CPU."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device if device is not None else a.device,
+                    dtype=dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _segment_reduce(values: torch.Tensor, segments: torch.Tensor, n: int,
+                    op: str) -> torch.Tensor:
+    """``jax.ops.segment_min`` (``op="amin"``) / ``segment_sum``
+    (``"sum"``) of 1-D ``values``: an empty segment gets jax's identity,
+    the dtype's largest value (+inf for floats) for min and 0 for sum.
+    jax's ``indices_are_sorted`` hint has no counterpart here."""
+    if op == "sum":
+        return values.new_zeros(n).index_add_(0, segments, values)
+    fill = (float("inf") if values.dtype.is_floating_point
+            else torch.iinfo(values.dtype).max)
+    return values.new_full((n,), fill).scatter_reduce_(
+        0, segments, values, op, include_self=False)
+
+
+def bfs_levels(edge_src, edge_dst, n_nodes: int, sources,
+               max_iters: Optional[int] = None,
+               dst_sorted: bool = False) -> torch.Tensor:
+    """BFS level per node (INF = unreachable) via frontier relaxation, on
+    ``edge_src``'s device.  Relaxes until a round changes nothing, at
+    most ``max_iters`` rounds (default ``n_nodes``); the ``changed`` flag
+    stays on the device and is read once per round.  ``dst_sorted`` is
+    the reference's sortedness hint: accepted, not needed."""
+    src = _tensor(edge_src).long()
+    dev = src.device
+    dst = _tensor(edge_dst, dev).long()
+    if max_iters is None:
+        max_iters = n_nodes
+    dist = torch.full((n_nodes,), int(INF), dtype=torch.int32, device=dev)
+    dist[_tensor(sources, dev).long()] = 0
+    for _ in range(max_iters):
+        # INF - 1 + 1 == INF: unreachable stays INF with no overflow
+        cand = dist[src].clamp_(max=int(INF) - 1).add_(1)
+        nd = torch.minimum(dist, _segment_reduce(cand, dst, n_nodes, "amin"))
+        changed = (nd != dist).any()
+        dist = nd
+        if not changed.item():
+            break
+    return dist
+
+
+def bfs_levels_ga(ga: GraphArrays, sources, max_iters: Optional[int] = None,
+                  device: str = "cuda") -> torch.Tensor:
+    """BFS over a columnar snapshot on ``device`` (CSC orientation)."""
+    check_device(device)
+    return bfs_levels(_tensor(ga.csc_src, device), _tensor(ga.csc_dst, device),
+                      ga.n_nodes, _tensor(sources, device), max_iters,
+                      dst_sorted=True)
+
+
+def reachable(edge_src, edge_dst, n_nodes: int, source: int,
+              target: int) -> bool:
+    lv = bfs_levels(edge_src, edge_dst, n_nodes, [source])
+    return bool(lv[target] < int(INF))
+
+
+def connected_components(edge_src, edge_dst, n_nodes: int,
+                         max_iters: int = 64, src_sorted: bool = False,
+                         dst_sorted: bool = False) -> torch.Tensor:
+    """Undirected label propagation (min-label) on ``edge_src``'s device,
+    until a round changes nothing, at most ``max_iters`` rounds; the
+    sortedness hints are accepted, not needed."""
+    src = _tensor(edge_src).long()
+    dev = src.device
+    dst = _tensor(edge_dst, dev).long()
+    lab = torch.arange(n_nodes, dtype=torch.int32, device=dev)
+    for _ in range(max_iters):
+        fwd = _segment_reduce(lab[src], dst, n_nodes, "amin")
+        bwd = _segment_reduce(lab[dst], src, n_nodes, "amin")
+        nl = torch.minimum(lab, torch.minimum(fwd, bwd))
+        changed = (nl != lab).any()
+        lab = nl
+        if not changed.item():
+            break
+    return lab
+
+
+def connected_components_ga(ga: GraphArrays, max_iters: int = 64,
+                            device: str = "cuda") -> torch.Tensor:
+    """CC over a columnar snapshot on ``device`` (CSR orientation)."""
+    check_device(device)
+    return connected_components(_tensor(ga.edge_src, device),
+                                _tensor(ga.edge_dst, device), ga.n_nodes,
+                                max_iters, src_sorted=True)
+
+
+def pagerank(edge_src, edge_dst, n_nodes: int, n_iters: int = 20,
+             damping: float = 0.85, src_sorted: bool = False,
+             dst_sorted: bool = False) -> torch.Tensor:
+    """fp32 PageRank, ``n_iters`` rounds, out-degree clamped at 1, on
+    ``edge_src``'s device.  On a card the sums go through atomics, so
+    two runs may differ in the last bits."""
+    src = _tensor(edge_src).long()
+    dev = src.device
+    dst = _tensor(edge_dst, dev).long()
+    deg = _segment_reduce(torch.ones(src.shape, dtype=torch.float32,
+                                     device=dev), src, n_nodes, "sum")
+    deg = torch.clamp(deg, min=1.0)
+    pr = torch.full((n_nodes,), 1.0 / n_nodes, dtype=torch.float32,
+                    device=dev)
+    for _ in range(n_iters):
+        agg = _segment_reduce(pr[src] / deg[src], dst, n_nodes, "sum")
+        pr = (1.0 - damping) / n_nodes + damping * agg
+    return pr
+
+
+def pagerank_ga(ga: GraphArrays, n_iters: int = 20, damping: float = 0.85,
+                device: str = "cuda") -> torch.Tensor:
+    """PageRank over a columnar snapshot on ``device`` (CSC
+    orientation)."""
+    check_device(device)
+    return pagerank(_tensor(ga.csc_src, device), _tensor(ga.csc_dst, device),
+                    ga.n_nodes, n_iters, damping, dst_sorted=True)
+
+
+def sssp_weighted(edge_src, edge_dst, weights, n_nodes: int,
+                  sources) -> torch.Tensor:
+    """Bellman-Ford style label-correcting shortest path (fp32; 3.4e38 =
+    unreachable) on ``edge_src``'s device.
+
+    The reference runs ``n_nodes - 1`` rounds unconditionally; this stops
+    at the first round that changes nothing.  A round is a function of
+    the distances alone, so a fixpoint stays one and the result is the
+    same array."""
+    src = _tensor(edge_src).long()
+    dev = src.device
+    dst = _tensor(edge_dst, dev).long()
+    w = _tensor(weights, dev, torch.float32)
+    dist = torch.full((n_nodes,), 3.4e38, dtype=torch.float32, device=dev)
+    dist[_tensor(sources, dev).long()] = 0.0
+    for _ in range(n_nodes - 1 if n_nodes > 1 else 1):
+        relaxed = _segment_reduce(dist[src] + w, dst, n_nodes, "amin")
+        nd = torch.minimum(dist, relaxed)
+        changed = (nd != dist).any()
+        dist = nd
+        if not changed.item():
+            break
+    return dist
+
+
 def build_csr(edge_src: np.ndarray, edge_dst: np.ndarray, n_nodes: int,
               dedup: bool = False, drop_self_loops: bool = False):
     """Sorted-CSR build: returns (indptr, nbrs) with each row's
@@ -1128,6 +1292,58 @@ def clustering_coefficients_np(edge_src: np.ndarray, edge_dst: np.ndarray,
     k = lens.astype(np.float64)
     denom = np.maximum(k * (k - 1.0), 1.0)
     return np.where(lens >= 2, links / denom, 0.0)
+
+
+#: elements of clustering_coefficients_padded's per-chunk (vertices,
+#: max_deg, max_deg) intermediates (int64 positions: 512 MiB)
+_CC_CHUNK_ELEMS = 1 << 26
+
+
+def clustering_coefficients_padded(edge_src, edge_dst, n_nodes: int,
+                                   max_deg: int) -> torch.Tensor:
+    """Padded-CSR local clustering coefficient (vectorized intersections)
+    on ``edge_src``'s device: the reference's
+    ``clustering_coefficients_jax``.
+
+    Row ``u`` of the table holds ``u``'s out-neighbours in stable
+    ``argsort(src)`` order, self-loops skipped, at most ``max_deg`` of
+    them, then sorted and padded with ``n_nodes``; membership tests are
+    ``searchsorted`` over the padded rows, a chunk of vertices at a
+    time."""
+    dev = (edge_src.device if isinstance(edge_src, torch.Tensor)
+           else torch.device("cpu"))
+    src = np.asarray(edge_src.cpu() if isinstance(edge_src, torch.Tensor)
+                     else edge_src, np.int64)
+    dst = np.asarray(edge_dst.cpu() if isinstance(edge_dst, torch.Tensor)
+                     else edge_dst, np.int64)
+    order = np.argsort(src, kind="stable")
+    s, d = src[order], dst[order]
+    keep = s != d
+    s, d = s[keep], d[keep]
+    # rank of each edge within its source's run (s is sorted)
+    starts = np.searchsorted(s, s, side="left")
+    rank = np.arange(s.size, dtype=np.int64) - starts
+    take = rank < max_deg
+    table = np.full((n_nodes, max_deg), n_nodes, dtype=np.int32)
+    table[s[take], rank[take]] = d[take]
+    table.sort(axis=1)
+    counts = np.minimum(np.bincount(s, minlength=n_nodes), max_deg)
+    tbl = torch.from_numpy(table).to(dev)
+    k = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    links = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
+    if max_deg > 0:
+        chunk = max(1, _CC_CHUNK_ELEMS // (max_deg * max_deg))
+        for lo in range(0, n_nodes, chunk):
+            rows = tbl[lo:lo + chunk]                       # (c, m)
+            vrows = tbl[rows.clamp(max=n_nodes - 1).long()]  # (c, m, m)
+            probe = rows[:, None, :].expand_as(vrows).contiguous()
+            pos = torch.searchsorted(vrows, probe).clamp_(max=max_deg - 1)
+            hit = ((vrows.gather(2, pos) == probe) & (probe < n_nodes)
+                   & (rows[:, :, None] < n_nodes))
+            links[lo:lo + chunk] = hit.sum(dim=(1, 2))
+    denom = torch.clamp(k * (k - 1), min=1)
+    return torch.where(k >= 2, links.to(torch.float32) / denom,
+                       torch.zeros((), dtype=torch.float32, device=dev))
 
 
 def visible_edges_at(ga: GraphArrays, at: Stamp, n_gk: int,

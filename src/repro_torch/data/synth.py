@@ -1,5 +1,7 @@
-"""Synthetic data generators: the social-network graph used by the
-paper's benchmarks."""
+"""Synthetic data generators: the social-network and blockchain graphs
+and the TAO request mix used by the paper's benchmarks.  Each draws from
+a numpy ``Generator`` exactly as the reference's does, so one seed gives
+the reference's lists."""
 
 from __future__ import annotations
 
@@ -18,3 +20,54 @@ def social_graph(rng: np.random.Generator, n_users: int,
     src = rng.choice(n_users, size=n_edges, p=w)
     dst = rng.choice(n_users, size=n_edges, p=w)
     return [(f"u{s}", f"u{d}") for s, d in zip(src, dst) if s != d]
+
+
+def blockchain(rng: np.random.Generator, n_blocks: int,
+               tx_per_block_fn=None) -> List[dict]:
+    """Synthetic Bitcoin-like chain: block vertices pointing at their
+    transactions, transactions pointing at output addresses.
+
+    tx counts per block grow with height like the real chain (Fig. 7)."""
+    chain = []
+    addr_pool = [f"addr{i}" for i in range(max(64, n_blocks * 4))]
+    for h in range(n_blocks):
+        if tx_per_block_fn is not None:
+            n_tx = max(1, int(tx_per_block_fn(h)))
+        else:
+            n_tx = max(1, int((h + 1) ** 1.2 / 2) + int(rng.integers(0, 3)))
+        txs = []
+        for t in range(n_tx):
+            n_out = int(rng.integers(1, 4))
+            outs = list(rng.choice(addr_pool, size=n_out, replace=False))
+            txs.append({"id": f"tx_{h}_{t}",
+                        "value": float(rng.random() * 10),
+                        "outputs": outs})
+        chain.append({"height": h, "id": f"block_{h}", "txs": txs})
+    return chain
+
+
+def tao_workload(rng: np.random.Generator, n: int, read_frac: float,
+                 vertices: List[str]) -> List[dict]:
+    """The paper's Table 1 mix scaled to ``read_frac`` reads.
+
+    Reads:  get_edges 59.4%, count_edges 11.7%, get_node 28.9% (of reads)
+    Writes: create_edge 80%, delete_edge 20%            (of writes)
+    """
+    ops = []
+    for _ in range(n):
+        v = vertices[int(rng.integers(0, len(vertices)))]
+        if rng.random() < read_frac:
+            r = rng.random()
+            if r < 0.594:
+                ops.append({"type": "get_edges", "v": v})
+            elif r < 0.594 + 0.117:
+                ops.append({"type": "count_edges", "v": v})
+            else:
+                ops.append({"type": "get_node", "v": v})
+        else:
+            if rng.random() < 0.8:
+                u = vertices[int(rng.integers(0, len(vertices)))]
+                ops.append({"type": "create_edge", "v": v, "u": u})
+            else:
+                ops.append({"type": "delete_edge", "v": v})
+    return ops

@@ -1,3 +1,3 @@
-from .server import LMServer, LMSession, RecServer
+from .server import GraphQueryServer, LMServer, LMSession, RecServer
 
-__all__ = ["LMServer", "LMSession", "RecServer"]
+__all__ = ["GraphQueryServer", "LMServer", "LMSession", "RecServer"]

@@ -24,6 +24,7 @@ PROBE = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.")
                     or m == "repro" or m.startswith("repro."))
     print("MODULES", len(names))
+    print("NAMES", " ".join(names))
     print("LEAKED", leaked)
     import torch
     from repro_torch.core import Weaver, WeaverConfig
@@ -67,7 +68,13 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     n_modules = int(out.split("MODULES ")[1].split()[0])
-    assert n_modules >= 62, out
+    assert n_modules >= 68, out
+    names = set(out.split("NAMES ")[1].split("\n")[0].split())
+    assert {"repro_torch.runtime.server", "repro_torch.core.bsp",
+            "repro_torch.core.twopl", "repro_torch.launch.serve",
+            "repro_torch.examples.common", "repro_torch.examples.quickstart",
+            "repro_torch.examples.social_serve",
+            "repro_torch.examples.coingraph"} <= names, out
     assert "LEAKED []" in out, out
     assert "False" not in out.split("LEAKED")[1], out
     assert out.count("NO_CUDA_RAISES") in (0, 4), out

@@ -6,7 +6,9 @@ The stream and its driver are ``chip_smoke.make_stream`` /
 ``chip_smoke.run_stream`` — the same code that runs the port on the card
 — at a small size: transactions (vertex/edge create and delete,
 properties), every node program, a GC pass, async submissions, cold and
-delta snapshots, then a shard kill plus promotion."""
+delta snapshots, the serving steps (closed and open loops of TAO
+requests through each package's ``GraphQueryServer``, every request's
+ok flag and latency), then a shard kill plus promotion."""
 
 import os
 import sys
@@ -27,7 +29,8 @@ import chip_smoke  # noqa: E402
 @pytest.mark.parametrize("group_commit", [0.0, 1e-3])
 def test_port_weaver_matches_reference(group_commit, plane):
     steps = chip_smoke.make_stream(5, 40, avg_degree=6, n_tx=30, n_prog=4,
-                                   chunk=64, kill="shard1")
+                                   chunk=64, kill="shard1",
+                                   serve_requests=120)
     kw = dict(n_gatekeepers=2, n_shards=3, seed=5,
               write_group_commit=group_commit, device_shard_columns=plane)
     want, w_ref = chip_smoke.run_stream(
@@ -46,6 +49,11 @@ def test_port_weaver_matches_reference(group_commit, plane):
     assert (counters["tx_batches"] > 0) == (group_commit > 0)
     snaps = [r for r in got if r[0] == "snap"]
     assert len(snaps) == 3 and snaps[-1][2].size > 0
+    serve = [r for r in got if r[0] == "serve"]
+    assert [r[1] for r in serve] == ["closed", "closed", "open"]
+    assert [len(r[3]) for r in serve] == [120, 24, 30]
+    assert all(r[2]["ok"] == r[2]["completed"] == r[2]["issued"]
+               for r in serve)
     if plane:
         assert w_port.device_plane.stats["launches"] > 0
         assert (w_port.device_plane.stats
