@@ -118,7 +118,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
    for one user, held against direct indexing; embedding_bag must launch.
    Then item ids past the table and -1 must raise ``IndexError`` from the
    live server, and its next top-10 must equal its earlier answer.
-6. One JSON line per the kernels table, the card's name and power limit,
+6. Training (the LM and SASRec training slice, through the package's
+   ``Trainer``, ``launch.train`` and ``LMServer``; each phase prints its
+   cuts on its first line and its wall clock; no kernel may launch on a
+   grad path):
+6a. gemma3-1b at full width, depth cut to 6 (one 5:1 local/global
+   period), fp32, batch 2 x 128, 3 steps on the card and on the CPU in
+   lockstep: per step the losses, grad norms, each tensor's Adam moments'
+   step share and the card's update against AdamW in fp64 must agree.
+6b. gemma3-1b at full width and depth, bf16 parameters with fp32
+   moments, loss_chunks 16, remat per layer, seq 4,096 x batch 8
+   (train_4k's batch cut from 256), 10 steps of Zipfian tokens with a
+   checkpoint every 5 in a temporary directory: the loss must fall; ms
+   per step, tokens/s, peak memory, checkpoint bytes and save seconds.
+   Then the step-10 save is torn, ``on_failure`` restores step 5 and
+   steps 6-10 rerun: their losses must equal the uninterrupted run's.
+   Then lm_loss under no_grad with the flash seam on and off must agree,
+   with 26 flash_attention launches, each held against its plain version
+   as phase 4 holds them.  Last, one more step under
+   ``torch.profiler``: device ms over its kernels (the idle share) and the
+   operators with the most device time.
+6c. moonshot-v1-16b-a3b at full width, depth cut 48 -> 2: an fp32
+   lockstep at 128 tokens over 2 steps, bf16 training at 1 x 4,096 over 4
+   steps (loss, aux loss, share of (token, slot) pairs over capacity),
+   then ``LMServer`` (2 x 256 prompts, 8 greedy steps) on the trained
+   weights against its plain twin, as phase 4 (18 flash launches).
+6d. SASRec at its published config: 65,536 sequences per step, 5 steps
+   through Trainer; a lockstep at batch 512; bce_loss under no_grad with
+   the bag seam on and off must be equal (3 embedding_bag launches).
+6e. ``python -m repro_torch.launch.train`` for gemma3-1b, gin-tu and
+   sasrec (reduced configs) and ``examples/train_lm.py``, each with
+   ``--device cuda`` and ``--device cpu`` in this process: each exits 0
+   and the final losses agree; each device's checkpoint resumes on the
+   other.
+   The sizes of 6a-6d are ``TRAIN_SIZES[--train-sizes]``: ``full`` (the
+   default) as above, ``rehearsal`` a quick pass.
+7. One JSON line per the kernels table, the card's name and power limit,
    and last the result line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -128,13 +163,17 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
 import multiprocessing
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
@@ -1402,29 +1441,35 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def moment_errs(card_m: dict, host_m: dict, m0: dict, decay: float) -> dict:
     """Per tensor, ||d_card - d_host|| / max(||d_host||, GNN_GRAD_FLOOR *
     ||all of d_host||) with d = m - decay * m0, the step's share of an
-    Adam moment."""
-    d_card = {k: card_m[k].cpu().double() - decay * m0[k].double()
-              for k in m0}
-    d_host = {k: host_m[k].double() - decay * m0[k].double() for k in m0}
-    floor = GNN_GRAD_FLOOR * float(torch.cat(
-        [d.flatten() for d in d_host.values()]).norm())
-    return {k: float((d_card[k] - d_host[k]).norm())
-            / max(float(d_host[k].norm()), floor, 1e-300) for k in m0}
+    Adam moment.  One tensor at a time in fp64 on the device of
+    ``card_m``."""
+    dev = next(iter(card_m.values())).device
+
+    def share(m, k):
+        return m[k].to(dev).double() - decay * m0[k].to(dev).double()
+
+    norms = {k: float(share(host_m, k).norm()) for k in m0}
+    floor = GNN_GRAD_FLOOR * float(np.sqrt(sum(n * n
+                                                for n in norms.values())))
+    return {k: float((share(card_m, k) - share(host_m, k)).norm())
+            / max(norms[k], floor, 1e-300) for k in m0}
 
 
-def update_errs(model, state, p0: dict, opt) -> dict:
-    """Per tensor, the relative error of the step's change of ``model``'s
-    parameters from ``p0`` against AdamW's update worked out in fp64 from
-    the run's own moments ``state``: -lr (m^ / (sqrt(v^) + eps) + wd p0)."""
+def update_errs(params: dict, state, p0: dict, opt) -> dict:
+    """Per tensor, the relative error of the step's change of ``params``
+    from ``p0`` against AdamW's update worked out in fp64 from the run's
+    own moments ``state``: -lr (m^ / (sqrt(v^) + eps) + wd p0), in fp64 on
+    the parameters' device."""
     t = int(state.step)
     lr = float(adamw.schedule_lr(opt, t))
     bc1, bc2 = 1 - opt.b1 ** t, 1 - opt.b2 ** t
     out = {}
-    for k, p in model.named_parameters():
-        m, v = state.mu[k].cpu().double(), state.nu[k].cpu().double()
+    for k, p in params.items():
+        m, v = state.mu[k].double(), state.nu[k].double()
+        p0k = p0[k].to(p.device).double()
         want = -lr * (m / bc1 / ((v / bc2).sqrt() + opt.eps)
-                      + opt.weight_decay * p0[k].double())
-        out[k] = rel_err(p.detach().cpu().double() - p0[k].double(), want)
+                      + opt.weight_decay * p0k)
+        out[k] = rel_err(p.detach().double() - p0k, want)
     return out
 
 
@@ -1529,7 +1574,8 @@ def phase_gnn(w, seed: int, steps: int, device: str = "cuda") -> dict:
         grad_errs = moment_errs(st_card.mu, st_host.mu, mu0, opt.b1)
         grad_errs.update({f"{k} (v)": e for k, e in moment_errs(
             st_card.nu, st_host.nu, nu0, opt.b2).items()})
-        step_errs = update_errs(card, st_card, p0, opt)
+        step_errs = update_errs(dict(card.named_parameters()), st_card, p0,
+                                opt)
         g_key = max(grad_errs, key=grad_errs.get)
         s_key = max(step_errs, key=step_errs.get)
         grad_err, step_err = grad_errs[g_key], step_errs[s_key]
@@ -2311,9 +2357,32 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+@contextlib.contextmanager
+def attention_held(att: list):
+    """Inside, every ``faops.mha`` call's result is held against its plain
+    version as phase 2c holds it (``flash_check``); each call appends
+    (passes, error in row-scale units, prefill?) to ``att``."""
+    mha = faops.mha
+
+    def checked(q, k, v, causal=True, window=None, kv_len=None, **kw):
+        got = mha(q, k, v, causal=causal, window=window, kv_len=kv_len, **kw)
+        ok, _, rel, _ = flash_check(got, q, k, v, causal, window, kv_len,
+                                    "plain")
+        att.append((ok, rel, q.shape[1] > 1))
+        return got
+
+    faops.mha = checked
+    try:
+        yield
+    finally:
+        faops.mha = mha
+
+
 def phase_lm(seed: int, batch: int, prompt: int, steps: int,
-             device: str = "cuda", cfg=None) -> dict:
-    """gemma3-1b (or ``cfg``) behind ``LMServer``: one batch of prompts,
+             device: str = "cuda", cfg=None, params=None,
+             label: str = "phase 4") -> dict:
+    """gemma3-1b (or ``cfg``, with ``params`` when given, else random
+    weights from ``seed``) behind ``LMServer``: one batch of prompts,
     then greedy decode steps; the plain twin (``set_use_kernel(False)``,
     same weights) runs in lockstep on the kernel path's tokens.
     ``device="cpu"`` with a reduced ``cfg`` rehearses the phase."""
@@ -2321,7 +2390,8 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
     from repro_torch.runtime import LMServer
     cfg = cfg or get_arch("gemma3-1b").config
     t0 = time.perf_counter()
-    params = transformer.init_params(cfg, seed=seed, device=device)
+    if params is None:
+        params = transformer.init_params(cfg, seed=seed, device=device)
     sync(device)
     print(f"lm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} heads "
           f"{cfg.n_heads}/{cfg.n_kv}x{cfg.d_head} d_ff={cfg.d_ff} vocab "
@@ -2392,26 +2462,13 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
     variants = {k: fak.launches[k] for k in ("flash_tc", "flash_decode",
                                             "flash_simt")}
     # every attention call of the kernel path, held to its plain version
-    # as phase 2c holds it (flash_check), in a second, untimed pass over
-    # the same prompts and tokens: the logits compare 26 layers of bf16
-    # noise, these one call each
+    # in a second, untimed pass over the same prompts and tokens: the
+    # logits compare 26 layers of bf16 noise, these one call each
     att = []
-    mha = faops.mha
-
-    def checked(q, k, v, causal=True, window=None, kv_len=None, **kw):
-        got = mha(q, k, v, causal=causal, window=window, kv_len=kv_len, **kw)
-        ok, _, rel, _ = flash_check(got, q, k, v, causal, window, kv_len,
-                                    "plain")
-        att.append((ok, rel, q.shape[1] > 1))
-        return got
-
-    faops.mha = checked
-    try:
+    with attention_held(att):
         kern.prefill(prompts)
         for t in toks:
             kern.step(t)
-    finally:
-        faops.mha = mha
     att_pre = max(r for _, r, pre in att if pre) / 2 ** -8
     att_dec = max(r for _, r, pre in att if not pre) / 2 ** -8
     print(f"lm: batch {batch} prompt {prompt} + {steps} greedy steps "
@@ -2432,10 +2489,10 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
           f"plain version: worst {att_pre:.3g} (prefill) / {att_dec:.3g} "
           f"(decode) * 2^-8 of |want| + row rms", flush=True)
     if not all(np.isfinite(errs)) or max(errs) > LM_LOGIT_TOL:
-        raise PhaseError(f"phase 4: kernel path != plain twin: logit errors "
+        raise PhaseError(f"{label}: kernel path != plain twin: logit errors "
                          f"{errs} (tolerance {LM_LOGIT_TOL})")
     if not all(ok for ok, _, _ in att):
-        raise PhaseError(f"phase 4: {sum(not ok for ok, _, _ in att)} of "
+        raise PhaseError(f"{label}: {sum(not ok for ok, _, _ in att)} of "
                          f"{len(att)} attention calls differ from their plain "
                          f"version (worst {att_pre:.3g} / {att_dec:.3g} * 2^-8 "
                          f"of the row scale; {FLASH_TOL} and FLASH_ROW_TOL)")
@@ -2443,7 +2500,7 @@ def phase_lm(seed: int, batch: int, prompt: int, steps: int,
             "flash_simt": 0}
     if device == "cuda" and (variants != want
                              or launches != cfg.n_layers * (1 + steps)):
-        raise PhaseError(f"phase 4: flash_attention launches {launches} "
+        raise PhaseError(f"{label}: flash_attention launches {launches} "
                          f"{variants}, expected {cfg.n_layers} x (1 + "
                          f"{steps}): {want}")
     del kern, plain, params
@@ -2591,6 +2648,656 @@ def phase_rec(seed: int, batch: int, n_cand: int,
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: LM and SASRec training (runtime.Trainer; no kernel on the grad
+# path, the kernels on the no-grad paths)
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_TOL = 1e-4   # per step, |loss card - loss CPU| / |loss CPU| in
+#                        the fp32 locksteps: both start the step from the
+#                        same parameters and moments, so summation order only
+TRAIN_GNORM_TOL = 1e-3  # the same for the global gradient norm
+RESUME_TOL = 1e-3       # |loss after on_failure - uninterrupted loss| / loss
+#                        on the same batches from the restored stamp (a
+#                        bit-exact restore of bf16 parameters and fp32
+#                        moments; only non-deterministic device sums could
+#                        part them)
+NOGRAD_LOSS_TOL = 1e-5  # |lm_loss kernel seam on - off| / loss under
+#                        no_grad: bf16 attention outputs rounded differently
+#                        (unnormalised vs normalised p), through every layer;
+#                        1.48e-06 measured at batch 8 on an H100 (4.22e-07
+#                        at batch 4), so ~7x the noise; each attention call
+#                        is also held to its plain version (FLASH_TOL,
+#                        FLASH_ROW_TOL)
+ENTRY_LOSS_TOL = 2e-2   # |final loss cuda - cpu| / loss of the training
+#                        entry points: 50-200 AdamW steps from the same
+#                        weights and batches, each device's rounding carried
+#                        along (Adam turns noise-level gradients into full
+#                        steps), printed to 4 decimals
+
+
+# the sizes main gives phases 6a-6d (6e runs reduced configs at fixed
+# sizes), by --train-sizes.  "full": 6b keeps train_4k's seq and cuts its
+# batch 256 -> 8: the card holds more (the peak, 28.2 GiB on an H100, is
+# the same at batch 4 and 8), but each sequence adds ~0.49 s to each of
+# the phase's 16 steps, and the script must finish in its time limit
+TRAIN_SIZES = {
+    "full": {
+        "6a": dict(layers=6, batch=2, seq=128, steps=3),
+        "6b": dict(layers=26, batch=8, seq=4096, steps=10, ckpt_every=5),
+        "6c": dict(layers=2, seq=4096, steps=4, lock_tokens=128,
+                   lock_steps=2, serve_batch=2, serve_prompt=256,
+                   serve_steps=8),
+        "6d": dict(batch=65_536, steps=5, lock_batch=512, lock_steps=3),
+    },
+    "rehearsal": {
+        "6a": dict(layers=2, batch=2, seq=128, steps=3),
+        "6b": dict(layers=6, batch=2, seq=512, steps=10, ckpt_every=5),
+        "6c": dict(layers=2, seq=512, steps=4, lock_tokens=128,
+                   lock_steps=2, serve_batch=2, serve_prompt=256,
+                   serve_steps=8),
+        "6d": dict(batch=4096, steps=5, lock_batch=512, lock_steps=3),
+    },
+}
+
+
+def fit_step(trainer, batch) -> None:
+    """One step through ``trainer.fit`` over an iterator that holds only
+    ``batch``: fit stops at the iterator's end (``StopIteration``) before
+    the trainer's ``total_steps``, so no checkpoint is written."""
+    try:
+        trainer.fit(iter([batch]))
+    except StopIteration:
+        return
+    raise PhaseError(f"trainer reached its total_steps at {trainer.step}")
+
+
+def _kernel_launches() -> dict:
+    return {"flash_attention": fak.launches["flash_attention"],
+            "embedding_bag": ebk.launches["embedding_bag"]}
+
+
+def _no_kernel_on_grad_path(label: str) -> None:
+    got = _kernel_launches()
+    if any(got.values()):
+        raise PhaseError(f"{label}: kernels launched on the grad path: {got}")
+
+
+def _host_copy(model):
+    """A CPU ParamTree holding a copy of ``model``'s parameters."""
+    from repro_torch.models.layers import ParamTree, module_tree, tree_like
+    tree = module_tree(model)
+    return ParamTree(tree_like(tree, {
+        k: v.detach().cpu().clone()
+        for k, v in model.named_parameters()}))
+
+
+def train_lockstep(label: str, card_tr, host_tr, batches: list, opt) -> dict:
+    """``card_tr`` and ``host_tr``, the same model and optimizer on the
+    card and on the CPU, take ``fit_step`` on the same batches in turn.
+    Per step the losses and global gradient norms, each tensor's Adam
+    moments' step share (``moment_errs``) and the card's change against
+    AdamW in fp64 from its own moments (``update_errs``) must agree; then
+    the CPU trainer takes the card's parameters and moments, so each step
+    starts equal."""
+    from repro_torch.optim.adamw import AdamWState
+    worst = {"loss": 0.0, "grad_norm": 0.0, "moments": 0.0, "update": 0.0}
+    secs = {"card": [], "cpu": []}
+    for i, b in enumerate(batches):
+        card = dict(card_tr.model.named_parameters())
+        p0 = {k: v.detach().clone() for k, v in card.items()}
+        mu0 = {k: v.clone() for k, v in card_tr.opt_state.mu.items()}
+        nu0 = {k: v.clone() for k, v in card_tr.opt_state.nu.items()}
+        t0 = time.perf_counter()
+        fit_step(card_tr, b)
+        sync(card_tr.device)
+        t1 = time.perf_counter()
+        fit_step(host_tr, b)
+        t2 = time.perf_counter()
+        secs["card"].append(t1 - t0)
+        secs["cpu"].append(t2 - t1)
+        lc, lh = card_tr.history[-1]["loss"], host_tr.history[-1]["loss"]
+        gc = float(card_tr.last_metrics["grad_norm"])
+        gh = float(host_tr.last_metrics["grad_norm"])
+        st_c, st_h = card_tr.opt_state, host_tr.opt_state
+        errs = {"loss": abs(lc - lh) / abs(lh),
+                "grad_norm": abs(gc - gh) / abs(gh)}
+        g = moment_errs(st_c.mu, st_h.mu, mu0, opt.b1)
+        g.update({f"{k} (v)": e for k, e in moment_errs(
+            st_c.nu, st_h.nu, nu0, opt.b2).items()})
+        u = update_errs(card, st_c, p0, opt)
+        g_key, u_key = max(g, key=g.get), max(u, key=u.get)
+        errs["moments"], errs["update"] = g[g_key], u[u_key]
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+        print(f"{label} step {i + 1}: loss card {lc!r} cpu {lh!r}, grad norm "
+              f"{gc:.6g} / {gh:.6g}; errors loss {errs['loss']:.3g} grad norm "
+              f"{errs['grad_norm']:.3g} moments {g[g_key]:.3g} ({g_key}) "
+              f"update {u[u_key]:.3g} ({u_key}); card step {t1 - t0:.3f} s, "
+              f"cpu step {t2 - t1:.2f} s", flush=True)
+        if not (np.isfinite(lc) and errs["loss"] <= TRAIN_LOSS_TOL
+                and errs["grad_norm"] <= TRAIN_GNORM_TOL
+                and errs["moments"] <= GNN_GRAD_TOL
+                and errs["update"] <= GNN_STEP_TOL):
+            raise PhaseError(
+                f"{label} step {i + 1}: card != CPU: {errs} (tolerances loss "
+                f"{TRAIN_LOSS_TOL}, grad norm {TRAIN_GNORM_TOL}, moments "
+                f"{GNN_GRAD_TOL}, update {GNN_STEP_TOL})")
+        del p0, mu0, nu0
+        if i == len(batches) - 1:
+            break
+        with torch.no_grad():
+            for k, p in host_tr.model.named_parameters():
+                p.copy_(card[k].detach().cpu())
+        host_tr.opt_state = AdamWState(
+            step=st_c.step.cpu(), mu={k: v.cpu() for k, v in st_c.mu.items()},
+            nu={k: v.cpu() for k, v in st_c.nu.items()})
+    print(f"{label}: card == CPU in lockstep over {len(batches)} steps "
+          f"through Trainer (worst: loss {worst['loss']:.3g} <= "
+          f"{TRAIN_LOSS_TOL}, grad norm {worst['grad_norm']:.3g} <= "
+          f"{TRAIN_GNORM_TOL}, moments {worst['moments']:.3g} <= "
+          f"{GNN_GRAD_TOL}, update {worst['update']:.3g} <= {GNN_STEP_TOL}); "
+          f"host s per step card {[round(x, 3) for x in secs['card']]}, cpu "
+          f"{[round(x, 2) for x in secs['cpu']]}", flush=True)
+    return {"errors": worst, "secs": secs}
+
+
+def lockstep_trainers(loss_fn, model, opt, tmp: str) -> tuple:
+    """Trainers of ``model`` on its device and of a CPU copy, each with a
+    checkpoint directory under ``tmp`` that ``fit_step`` never writes."""
+    from repro_torch.runtime import Trainer, TrainerConfig
+    host = _host_copy(model)
+    mk = lambda m, d: Trainer(loss_fn, m, opt, TrainerConfig(  # noqa: E731
+        total_steps=10 ** 6, ckpt_every=10 ** 6, log_every=10 ** 6,
+        ckpt_dir=str(Path(tmp) / d)))
+    return mk(model, "card"), mk(host, "cpu")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def phase_lm_lockstep(seed: int, layers: int, batch: int, seq: int,
+                      steps: int, device: str = "cuda", cfg=None) -> dict:
+    """6a: gemma3-1b at full width (or ``cfg``), depth cut to ``layers``,
+    fp32, trained through Trainer on the card and on the CPU in
+    lockstep."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.optim import AdamWConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cfg or get_arch("gemma3-1b").config,
+                              n_layers=layers, dtype="float32")
+    print(f"6a lm lockstep: {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
+          f"{cfg.n_kv}x{cfg.d_head} d_ff={cfg.d_ff} vocab {cfg.vocab}; cut: "
+          f"depth {get_arch('gemma3-1b').config.n_layers} -> {layers} "
+          f"(windows {[int(w) for w in cfg.layer_windows()]}), fp32, batch "
+          f"{batch} x {seq}, {steps} steps", flush=True)
+    model = ParamTree(transformer.init_params(cfg, seed=seed, device=device))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+    gen = synth.token_batches(np.random.default_rng(seed), cfg.vocab, batch,
+                              seq)
+    batches = [next(gen) for _ in range(steps)]
+    with tempfile.TemporaryDirectory() as tmp:
+        card_tr, host_tr = lockstep_trainers(
+            lambda m, b: transformer.lm_loss(m.tree(), b, cfg), model, opt,
+            tmp)
+        fak.reset_launches()
+        ebk.reset_launches()
+        out = train_lockstep("6a lm lockstep", card_tr, host_tr, batches,
+                             opt)
+        _no_kernel_on_grad_path("6a")
+    return out
+
+
+def _device_us(event) -> float:
+    """A profiler event's own device time in µs (the attribute's name
+    changed across torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def step_profile(step_fn, model, state, batch, top: int = 10) -> dict:
+    """One more training step under ``torch.profiler`` on the card: its
+    host ms to the loss read, the device ms summed over its kernels (so
+    the device's idle share) and the operators whose kernels took the
+    most device time, with their input shapes."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        _, _, m = step_fn(model, state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages(group_by_input_shape=True)
+    # kernels carry the device time; the operators that launched them
+    # carry the same time again, with their input shapes
+    kernel = [e for e in events
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    device = sum(_device_us(e) for e in kernel) / 1e3
+    ops = sorted(((_device_us(e) / 1e3, e.key, str(e.input_shapes))
+                  for e in events if e not in kernel and _device_us(e) > 0),
+                 reverse=True)
+    return {"wall_ms": wall * 1e3, "device_ms": device,
+            "idle_share": 1 - device / (wall * 1e3), "ops": ops[:top]}
+
+
+def phase_lm_train(seed: int, batch: int, seq: int, steps: int,
+                   ckpt_every: int, device: str = "cuda", cfg=None) -> dict:
+    """6b: gemma3-1b (or ``cfg``) at full width and depth, bf16 parameters
+    with fp32 moments, trained through Trainer on Zipfian tokens with
+    checkpoints; then the last save torn, ``on_failure`` restores the one
+    before it and the steps after it run again on the same batches; last,
+    the trained weights' lm_loss under no_grad with the kernel seam on
+    and off."""
+    from repro_torch.data.pipeline import batch_to_torch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = cfg or get_arch("gemma3-1b").config
+    full = get_arch("gemma3-1b").shapes["train_4k"].dims
+    print(f"6b lm train: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+          f"vocab {cfg.vocab} {cfg.dtype} params, fp32 moments, loss_chunks "
+          f"{cfg.loss_chunks}, remat {cfg.remat}; cut: train_4k's batch "
+          f"{full['batch']} -> {batch} (seq {seq}; train_4k's {full['seq']}), "
+          f"{steps} steps, ckpt every {ckpt_every}", flush=True)
+    model = ParamTree(transformer.init_params(cfg, seed=seed, device=device))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    gen = synth.token_batches(np.random.default_rng(seed), cfg.vocab, batch,
+                              seq)
+    batches = [next(gen) for _ in range(steps)]
+    tmp = tempfile.mkdtemp()
+    try:
+        tr = Trainer(lambda m, b: transformer.lm_loss(m.tree(), b, cfg),
+                     model, opt, TrainerConfig(
+                         total_steps=steps, ckpt_every=ckpt_every,
+                         ckpt_dir=tmp, log_every=10 ** 6))
+        saves = []
+        save = tr.store.save
+
+        def timed_save(state, step, extra=None):
+            sync(device)
+            t0 = time.perf_counter()
+            st = save(state, step, extra)
+            saves.append(time.perf_counter() - t0)
+            return st
+
+        tr.store.save = timed_save
+        fak.reset_launches()
+        ebk.reset_launches()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.fit(iter(batches))
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        _no_kernel_on_grad_path("6b")
+        losses = [h["loss"] for h in tr.history]
+        step_s = [h["time_s"] for h in tr.history]
+        last = tr.store.latest()
+        ckpt_bytes = _dir_bytes(last.path)
+        warm = statistics.median(step_s[1:])
+        print(f"6b lm train: {n_params / 1e9:.4f}B parameters; losses "
+              f"{[round(x, 4) for x in losses]}; step ms median of steps "
+              f"2-{steps} {warm * 1e3:.2f} (first {step_s[0] * 1e3:.2f}), "
+              f"{batch * seq / warm:.1f} tokens/s (host wall clock to the "
+              f"loss read); max_memory_allocated "
+              f"{peak / 2 ** 30:.2f} GiB; checkpoint {ckpt_bytes / 1e9:.3f} "
+              f"GB at step {last.step}, saves {[round(x, 2) for x in saves]} "
+              f"s; fit {fit_s:.1f} s", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise PhaseError(f"6b: loss not finite or not falling: {losses}")
+        # a failure that tears the last save: restart from the one before
+        os.remove(os.path.join(last.path, "MANIFEST.json"))
+        t0 = time.perf_counter()
+        tr.on_failure()
+        sync(device)
+        restore_s = time.perf_counter() - t0
+        if tr.step != steps - ckpt_every or tr.store.epoch != 1:
+            raise PhaseError(f"6b: resumed at step {tr.step}, epoch "
+                             f"{tr.store.epoch}")
+        tr.fit(iter(batches[tr.step:]))
+        again = [h["loss"] for h in tr.history[steps:]]
+        diff = max(abs(a - b) / abs(b)
+                   for a, b in zip(again, losses[steps - ckpt_every:]))
+        print(f"6b lm train: step {steps}'s save torn (manifest removed); "
+              f"on_failure restored step {steps - ckpt_every} (epoch 1) in "
+              f"{restore_s:.2f} s; rerun losses {[round(x, 4) for x in again]}"
+              f", largest relative difference from the uninterrupted run "
+              f"{diff:.3g} (tolerance {RESUME_TOL})", flush=True)
+        if len(again) != ckpt_every or not diff <= RESUME_TOL:
+            raise PhaseError(f"6b: rerun after on_failure {again} != "
+                             f"{losses[steps - ckpt_every:]}")
+        _no_kernel_on_grad_path("6b rerun")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tb = batch_to_torch(batches[-1], device)
+    att = []
+    with torch.no_grad():
+        fak.reset_launches()
+        with attention_held(att):
+            on = float(transformer.lm_loss(model.tree(), tb, cfg)[0])
+        launches = _kernel_launches()
+        transformer.set_use_kernel(False)
+        try:
+            off = float(transformer.lm_loss(model.tree(), tb, cfg)[0])
+        finally:
+            transformer.set_use_kernel(True)
+    err = abs(on - off) / abs(off)
+    att_worst = max((r for _, r, _ in att), default=0.0) / 2 ** -8
+    print(f"6b lm train: lm_loss under no_grad, seam on {on!r} off {off!r}: "
+          f"relative difference {err:.3g} (tolerance {NOGRAD_LOSS_TOL}); "
+          f"launches {launches}; each of the {len(att)} attention calls "
+          f"against its plain version: worst {att_worst:.3g} * 2^-8 of "
+          f"|want| + row rms", flush=True)
+    if not err <= NOGRAD_LOSS_TOL:
+        raise PhaseError(f"6b: no-grad lm_loss seam on {on} != off {off}")
+    if len(att) != cfg.n_layers or not all(ok for ok, _, _ in att):
+        raise PhaseError(f"6b: {sum(not ok for ok, _, _ in att)} of "
+                         f"{len(att)} attention calls differ from their plain "
+                         f"version (worst {att_worst:.3g} * 2^-8 of the row "
+                         f"scale; {FLASH_TOL} and FLASH_ROW_TOL)")
+    if device == "cuda" and launches["flash_attention"] != cfg.n_layers:
+        raise PhaseError(f"6b: flash_attention launched "
+                         f"{launches['flash_attention']} times in the no-grad "
+                         f"lm_loss, expected {cfg.n_layers}")
+    prof = None
+    if device == "cuda":
+        # where a step's time goes: the Trainer's step once more, profiled
+        # (after every check: it changes nothing checked above)
+        prof = step_profile(tr.step_fn, tr.model, tr.opt_state, tb)
+        print(f"6b lm train: one more step under torch.profiler: "
+              f"{prof['wall_ms']:.2f} ms host wall clock, "
+              f"{prof['device_ms']:.2f} ms of kernels (device idle share "
+              f"{prof['idle_share']:.3f}); operators by device ms: "
+              + "; ".join(f"{ms:.2f} {key} {shapes}"
+                          for ms, key, shapes in prof["ops"]), flush=True)
+    del tr, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"step_ms": warm * 1e3, "tokens_per_s": batch * seq / warm,
+            "peak_bytes": peak, "ckpt_bytes": ckpt_bytes, "save_s": saves,
+            "restore_s": restore_s, "resume_diff": diff,
+            "nograd_err": err, "attention_error": att_worst,
+            "launches": launches["flash_attention"],
+            "losses": losses, "profile": prof}
+
+
+def phase_moe(seed: int, layers: int, seq: int, steps: int,
+              lock_tokens: int, lock_steps: int, serve_batch: int,
+              serve_prompt: int, serve_steps: int, device: str = "cuda",
+              cfg=None) -> dict:
+    """6c: moonshot-v1-16b-a3b (or ``cfg``) at full width, depth cut to
+    ``layers``: an fp32 lockstep card against CPU at ``lock_tokens``
+    tokens, then bf16 training at ``seq`` tokens through Trainer (loss,
+    aux loss and the share of (token, slot) pairs over capacity), then
+    LMServer on the trained weights against its plain twin (phase 4's
+    checks)."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.optim import AdamWConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = cfg or get_arch("moonshot-v1-16b-a3b").config
+    cfg = dataclasses.replace(full, n_layers=layers)
+    m = cfg.moe
+    print(f"6c moe: {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
+          f"{cfg.n_kv}x{cfg.d_head} {m.n_experts} experts top-{m.top_k} "
+          f"d_expert {m.d_expert} shared {m.n_shared} vocab {cfg.vocab}; cut: "
+          f"depth {get_arch('moonshot-v1-16b-a3b').config.n_layers} -> "
+          f"{layers} ({cfg.n_params() / 1e9:.3f}B parameters), train "
+          f"{steps} steps at seq {seq} x batch 1 in bf16; lockstep fp32 at "
+          f"{lock_tokens} tokens x {lock_steps} steps", flush=True)
+    loss_of = {}
+    kept = []
+    dispatch = moe.dispatch
+
+    def recording(expert_flat, n_experts, c):
+        pos_c, keep = dispatch(expert_flat, n_experts, c)
+        kept.append(keep.float().mean())
+        return pos_c, keep
+
+    def loss_fn(c):
+        def f(mm, b):
+            loss, metrics = transformer.lm_loss(mm.tree(), b, c)
+            loss_of["aux"] = metrics["aux"].detach()
+            return loss, metrics
+        return f
+
+    # the fp32 lockstep first, then its weights go
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    model = ParamTree(transformer.init_params(c32, seed=seed, device=device))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=lock_steps)
+    gen = synth.token_batches(np.random.default_rng(seed), c32.vocab, 1,
+                              lock_tokens)
+    moe.dispatch = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            card_tr, host_tr = lockstep_trainers(loss_fn(c32), model, opt,
+                                                 tmp)
+            fak.reset_launches()
+            lock = train_lockstep("6c moe lockstep", card_tr, host_tr,
+                                  [next(gen) for _ in range(lock_steps)], opt)
+            _no_kernel_on_grad_path("6c lockstep")
+        lock_drop = max(1 - float(k) for k in kept)
+        del card_tr, host_tr, model
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        # bf16 training at seq tokens
+        model = ParamTree(transformer.init_params(cfg, seed=seed,
+                                                  device=device))
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+        gen = synth.token_batches(np.random.default_rng(seed + 1), cfg.vocab,
+                                  1, seq)
+        with tempfile.TemporaryDirectory() as tmp:
+            tr, _ = lockstep_trainers(loss_fn(cfg), model, opt, tmp)
+            recs = []
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            for _ in range(steps):
+                kept.clear()
+                fit_step(tr, next(gen))
+                recs.append((tr.history[-1]["loss"], float(loss_of["aux"]),
+                             1 - float(torch.stack(kept).mean()),
+                             tr.history[-1]["time_s"]))
+            peak = torch.cuda.max_memory_allocated() \
+                if device == "cuda" else 0
+            _no_kernel_on_grad_path("6c train")
+    finally:
+        moe.dispatch = dispatch
+    warm = statistics.median(r[3] for r in recs[1:])
+    print(f"6c moe train: per step (loss, aux loss, share of (token, slot) "
+          f"pairs over capacity, averaged over {layers} layers, host s) "
+          f"{[tuple(round(x, 4) for x in r) for r in recs]}; step ms median "
+          f"of steps 2-{steps} {warm * 1e3:.2f}, {seq / warm:.1f} tokens/s; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; lockstep's "
+          f"largest drop share in one layer call {lock_drop:.4f}",
+          flush=True)
+    if not all(np.isfinite(r[:2]).all() for r in recs):
+        raise PhaseError(f"6c: loss or aux not finite: {recs}")
+    params = model.tree()
+    t0 = time.perf_counter()
+    serve = phase_lm(seed, serve_batch, serve_prompt, serve_steps,
+                     device=device, cfg=cfg, params=params, label="6c")
+    print(f"6c moe serve: {time.perf_counter() - t0:.2f} s host wall clock",
+          flush=True)
+    del tr, model, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"lockstep": lock, "train": recs, "step_ms": warm * 1e3,
+            "peak_bytes": peak, "serve": serve,
+            "launches": serve["launches"]}
+
+
+def phase_rec_train(seed: int, batch: int, steps: int, lock_batch: int,
+                    lock_steps: int, device: str = "cuda", cfg=None) -> dict:
+    """6d: SASRec (or ``cfg``) at its published config trained through
+    Trainer at ``batch`` sequences per step; a lockstep card against CPU
+    at ``lock_batch``; then bce_loss under no_grad with the bag seam on
+    and off (equal, the bag launched)."""
+    from repro_torch.data.pipeline import batch_to_torch
+    from repro_torch.models import sasrec
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg or get_arch("sasrec").config
+    full = get_arch("sasrec").shapes["train_batch"].dims
+    print(f"6d rec train: {cfg.name} {cfg.n_items} items d={cfg.d_embed} "
+          f"{cfg.n_blocks} blocks seq {cfg.seq_len}; batch {batch} "
+          f"(train_batch's {full['batch']}), {steps} steps through Trainer; "
+          f"lockstep at batch {lock_batch} x {lock_steps} steps", flush=True)
+    loss_fn = lambda m, b: sasrec.bce_loss(m.tree(), b, cfg)  # noqa: E731
+    rng = np.random.default_rng(seed)
+    model = ParamTree(sasrec.init_params(cfg, seed=seed, device=device))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=lock_steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        card_tr, host_tr = lockstep_trainers(loss_fn, model, opt, tmp)
+        fak.reset_launches()
+        ebk.reset_launches()
+        lock = train_lockstep(
+            "6d rec lockstep", card_tr, host_tr,
+            [synth.sasrec_batch(rng, cfg.n_items, lock_batch, cfg.seq_len)
+             for _ in range(lock_steps)], opt)
+        _no_kernel_on_grad_path("6d lockstep")
+    del card_tr, host_tr, model
+    model = ParamTree(sasrec.init_params(cfg, seed=seed, device=device))
+    batches = [synth.sasrec_batch(rng, cfg.n_items, batch, cfg.seq_len)
+               for _ in range(steps)]
+    tmp = tempfile.mkdtemp()
+    try:
+        tr = Trainer(loss_fn, model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                 total_steps=steps),
+                     TrainerConfig(total_steps=steps, ckpt_every=steps,
+                                   ckpt_dir=tmp, log_every=10 ** 6))
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tr.fit(iter(batches))
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        _no_kernel_on_grad_path("6d train")
+        ckpt_bytes = _dir_bytes(tr.store.latest().path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [h["loss"] for h in tr.history]
+    warm = statistics.median(h["time_s"] for h in tr.history[1:])
+    print(f"6d rec train: losses {[round(x, 5) for x in losses]}; step ms "
+          f"median of steps 2-{steps} {warm * 1e3:.2f} (first "
+          f"{tr.history[0]['time_s'] * 1e3:.2f}), {batch / warm:.1f} "
+          f"sequences/s; max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+          f"checkpoint {ckpt_bytes / 1e9:.3f} GB", flush=True)
+    # the batches' targets and negatives are uniform draws: nothing to
+    # learn from them, so the loss stays near 2 ln 2; finite is required
+    if not np.isfinite(losses).all():
+        raise PhaseError(f"6d: loss not finite: {losses}")
+    tb = batch_to_torch(batches[-1], device)
+    with torch.no_grad():
+        ebk.reset_launches()
+        on = sasrec.bce_loss(model.tree(), tb, cfg)[0]
+        launches = _kernel_launches()
+        sasrec.set_use_kernel(False)
+        try:
+            off = sasrec.bce_loss(model.tree(), tb, cfg)[0]
+        finally:
+            sasrec.set_use_kernel(True)
+    print(f"6d rec train: bce_loss under no_grad, seam on {float(on)!r} off "
+          f"{float(off)!r} (must be equal: one-index bags are the rows); "
+          f"launches {launches}", flush=True)
+    if not torch.equal(on, off):
+        raise PhaseError(f"6d: no-grad bce_loss seam on {float(on)} != off "
+                         f"{float(off)}")
+    if device == "cuda" and launches["embedding_bag"] != 3:
+        raise PhaseError(f"6d: embedding_bag launched "
+                         f"{launches['embedding_bag']} times in the no-grad "
+                         f"bce_loss, expected 3")
+    del tr, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"lockstep": lock, "step_ms": warm * 1e3, "peak_bytes": peak,
+            "ckpt_bytes": ckpt_bytes, "losses": losses,
+            "launches": launches["embedding_bag"]}
+
+
+# (module, argv) of the training entry points, each run with --device cuda
+# and --device cpu: one architecture of each family at reduced_config
+TRAIN_ENTRY_POINTS = (
+    ("repro_torch.launch.train", ["--arch", "gemma3-1b"]),
+    ("repro_torch.launch.train", ["--arch", "gin-tu"]),
+    ("repro_torch.launch.train", ["--arch", "sasrec"]),
+    ("repro_torch.examples.train_lm", []),
+)
+
+
+def _final_loss(text: str) -> float:
+    """The loss an entry point printed last: ``final loss X after N
+    steps`` (launch.train) or ``loss A -> B over N steps`` (train_lm)."""
+    last = text.strip().splitlines()[-1].split()
+    return float(last[2] if last[0] == "final" else last[3])
+
+
+def phase_train_entry_points(devices=("cuda", "cpu")) -> dict:
+    """6e: each training entry point's ``main(argv + ["--device", d,
+    "--ckpt-dir", ...])`` for each device in this process: every call
+    must exit 0, launch no kernel, and print final losses that agree
+    within ENTRY_LOSS_TOL.  Then each device's launch.train checkpoint of
+    the first arch resumes on the other device (``--resume``)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mod, argv in TRAIN_ENTRY_POINTS:
+            main_fn = importlib.import_module(mod).main
+            losses = {}
+            for dev in devices:
+                ck = str(Path(tmp) / f"{mod}{''.join(argv)}_{dev}")
+                buf = io.StringIO()
+                fak.reset_launches()
+                ebk.reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = main_fn(argv + ["--device", dev, "--ckpt-dir", ck])
+                sync(dev)
+                secs = time.perf_counter() - t0
+                if rc != 0:
+                    raise PhaseError(f"6e: {mod} {argv} --device {dev} "
+                                     f"exited {rc}: {buf.getvalue()[-2000:]}")
+                _no_kernel_on_grad_path(f"6e {mod} {argv} {dev}")
+                losses[dev] = _final_loss(buf.getvalue())
+                print(f"6e entry points: {' '.join([mod] + argv)} --device "
+                      f"{dev}: exit 0 in {secs:.2f} s host wall clock; last "
+                      f"line: {buf.getvalue().strip().splitlines()[-1]}",
+                      flush=True)
+            vals = list(losses.values())
+            err = abs(vals[0] - vals[-1]) / abs(vals[-1])
+            print(f"6e entry points: {' '.join([mod] + argv)} final losses "
+                  f"{losses}: relative difference {err:.3g} (tolerance "
+                  f"{ENTRY_LOSS_TOL})", flush=True)
+            if not err <= ENTRY_LOSS_TOL:
+                raise PhaseError(f"6e: {mod} {argv} final losses {losses}")
+            out[" ".join([mod] + argv)] = losses
+        # a checkpoint written on one device resumes on the other
+        mod, argv = TRAIN_ENTRY_POINTS[0]
+        main_fn = importlib.import_module(mod).main
+        for src, dst in zip(devices, devices[::-1]):
+            if src == dst:
+                continue
+            ck = str(Path(tmp) / f"{mod}{''.join(argv)}_{src}")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main_fn(argv + ["--device", dst, "--ckpt-dir", ck,
+                                     "--resume", "--steps", "60"])
+            text = buf.getvalue()
+            if rc != 0 or "resumed at step 50" not in text \
+                    or not text.strip().endswith("after 60 steps"):
+                raise PhaseError(f"6e: {src} checkpoint did not resume on "
+                                 f"{dst}: {text[-2000:]}")
+            print(f"6e entry points: the {src} run's checkpoint resumed on "
+                  f"{dst} at step 50 and trained to 60: "
+                  f"{text.strip().splitlines()[-1]}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2626,6 +3333,9 @@ def main(argv=None) -> int:
                     help="users per top_k call (sasrec's serve_p99)")
     ap.add_argument("--rec-cands", type=int, default=1_000_000,
                     help="candidates scored (sasrec's retrieval_cand)")
+    ap.add_argument("--train-sizes", choices=sorted(TRAIN_SIZES),
+                    default="full", help="sizes of the training phases "
+                    "6a-6d (TRAIN_SIZES)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2715,6 +3425,25 @@ def main(argv=None) -> int:
     # set to 0 just before it and read just after
     lm = phase_lm(args.seed, args.lm_batch, args.lm_prompt, args.lm_steps)
     rec = phase_rec(args.seed, args.rec_batch, args.rec_cands)
+
+    # the training slice: no kernel on the grad path, each no-grad path's
+    # kernels counted from 0 inside its phase
+    sizes = TRAIN_SIZES[args.train_sizes]
+    lm_train = dict(sizes["6b"])
+    gemma = dataclasses.replace(get_arch("gemma3-1b").config,
+                                n_layers=lm_train.pop("layers"))
+    for label, fn, kw in (("6a", phase_lm_lockstep, sizes["6a"]),
+                          ("6b", phase_lm_train, dict(lm_train, cfg=gemma)),
+                          ("6c", phase_moe, sizes["6c"]),
+                          ("6d", phase_rec_train, sizes["6d"])):
+        t0 = time.perf_counter()
+        fn(args.seed, **kw)
+        print(f"{label} phase: {time.perf_counter() - t0:.2f} s host wall "
+              f"clock", flush=True)
+    t0 = time.perf_counter()
+    phase_train_entry_points()
+    print(f"6e phase: {time.perf_counter() - t0:.2f} s host wall clock",
+          flush=True)
 
     rows = []
     for name in ("before", "visibility", "before_pairs"):

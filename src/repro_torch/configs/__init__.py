@@ -1,9 +1,9 @@
 """Architecture registry: ``get_arch(<id>)`` resolution.
 
-Holds the dense LM architectures (phi4-mini, gemma3-1b, chatglm3-6b),
-the four GNN architectures (gin-tu, pna, gat-cora, dimenet) and sasrec,
-each with its shape set, and the paper system's own deployment config.
-The MoE LMs (moonshot, qwen3-moe) join with ``models/moe.py``.
+The reference's ten architectures (5 LM: moonshot and qwen3-moe with
+MoE layers, phi4-mini, gemma3-1b, chatglm3-6b; 4 GNN: gin-tu, pna,
+gat-cora, dimenet; sasrec), each with its shape set, and the paper
+system's own deployment config.
 """
 
 from __future__ import annotations
@@ -13,11 +13,12 @@ from typing import Dict, List
 from .base import ArchSpec, ShapeSpec
 
 from . import (chatglm3_6b, dimenet, gat_cora, gemma3_1b, gin_tu,
-               phi4_mini_3p8b, pna, sasrec)
+               moonshot_v1_16b_a3b, phi4_mini_3p8b, pna, qwen3_moe_235b_a22b,
+               sasrec)
 from .weaver_store import PAPER_DEPLOYMENT
 
-_MODULES = [phi4_mini_3p8b, gemma3_1b, chatglm3_6b, gin_tu, pna, dimenet,
-            gat_cora, sasrec]
+_MODULES = [moonshot_v1_16b_a3b, qwen3_moe_235b_a22b, phi4_mini_3p8b,
+            gemma3_1b, chatglm3_6b, gin_tu, pna, dimenet, gat_cora, sasrec]
 
 ARCHS: Dict[str, ArchSpec] = {m.SPEC.arch_id: m.SPEC for m in _MODULES}
 

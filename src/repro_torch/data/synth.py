@@ -1,13 +1,41 @@
-"""Synthetic data generators: the social-network and blockchain graphs
-and the TAO request mix used by the paper's benchmarks.  Each draws from
-a numpy ``Generator`` exactly as the reference's does, so one seed gives
-the reference's lists."""
+"""Synthetic data generators: token streams, recsys interactions, the
+social-network and blockchain graphs and the TAO request mix used by the
+paper's benchmarks.  Each draws from a numpy ``Generator`` exactly as the
+reference's does, so one seed gives the reference's arrays and lists and
+leaves the generator in the same state."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
+
+
+def token_batches(rng: np.random.Generator, vocab: int, batch: int,
+                  seq: int) -> Iterator[dict]:
+    """Zipfian token stream with next-token labels."""
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs)
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+
+
+def lm_batch(rng: np.random.Generator, vocab: int, batch: int,
+             seq: int) -> dict:
+    toks = rng.integers(0, vocab, size=(batch, seq + 1))
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}
+
+
+def sasrec_batch(rng: np.random.Generator, n_items: int, batch: int,
+                 seq: int) -> dict:
+    hist = rng.integers(1, n_items + 1, size=(batch, seq)).astype(np.int32)
+    pos = rng.integers(1, n_items + 1, size=(batch, seq)).astype(np.int32)
+    neg = rng.integers(1, n_items + 1, size=(batch, seq)).astype(np.int32)
+    return {"hist": hist, "pos": pos, "neg": neg}
 
 
 # ---------------------------------------------------------------- paper data

@@ -18,14 +18,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from . import mp
+from .layers import attach_tree
 
 
 def _c(cfg, x, is_node: bool = False):
@@ -66,42 +66,6 @@ class GNNConfig:
     @property
     def tdtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
-
-
-# ------------------------------------------------------- parameter trees ---
-class ParamTree(nn.Module):
-    """Parameters laid out as a reference pytree: a dict becomes a module
-    with one attribute per key, a list an ``nn.ModuleList``, an array a
-    parameter."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        _attach(self, tree)
-
-
-def _attach(module: nn.Module, tree: dict) -> None:
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            module.add_module(k, ParamTree(v))
-        elif isinstance(v, list):
-            module.add_module(k, nn.ModuleList(ParamTree(i) for i in v))
-        else:
-            t = v if isinstance(v, torch.Tensor) else torch.tensor(
-                np.array(v))
-            module.register_parameter(k, nn.Parameter(t))
-
-
-def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """``{dotted pytree path: array}`` of a nested dict/list tree."""
-    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
-    out: Dict[str, np.ndarray] = {}
-    for k, v in items:
-        name = f"{prefix}{k}"
-        if isinstance(v, (dict, list)):
-            out.update(flatten_tree(v, name + "."))
-        else:
-            out[name] = v
-    return out
 
 
 def _normal(gen: torch.Generator, shape, dtype) -> torch.Tensor:
@@ -366,7 +330,7 @@ class GNN(nn.Module):
             gen = generator if generator is not None \
                 else torch.Generator().manual_seed(0)
             tree = ARCHS[cfg.kind][0](gen, cfg)
-        _attach(self, tree)
+        attach_tree(self, tree)
 
     def forward(self, batch: dict) -> torch.Tensor:
         return ARCHS[self.cfg.kind][1](self, batch, self.cfg)

@@ -2,7 +2,9 @@
 (full / sliding-window / KV-cache decode), gated MLPs.
 
 Layers are functions over parameter dicts of tensors (the reference's
-pytrees, carried across by ``transformer.params_from_jax``).  The
+pytrees, carried across by ``transformer.params_from_jax``);
+:class:`ParamTree` holds such a tree as one ``nn.Module`` for the
+optimizer and the trainer.  The
 reference's ``jax.lax.scan`` over stacked layers becomes a Python loop in
 ``transformer``; ``dist.constrain`` sharding hints are the identity on
 one card and are dropped.
@@ -11,11 +13,12 @@ one card and are dropped.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 Param = dict
 
@@ -35,6 +38,86 @@ def params_from_jax(tree, device="cpu"):
         return torch.from_numpy(arr.astype(np.float32)).to(
             device, torch.bfloat16)
     return torch.from_numpy(np.array(arr)).to(device)
+
+
+# ----------------------------------------------------------- parameter trees
+class ParamTree(nn.Module):
+    """Parameters laid out as a reference pytree: a dict becomes a module
+    with one attribute per key, a list an ``nn.ModuleList``, an array a
+    parameter.  Parameter names are the tree's paths joined by dots, and
+    :meth:`tree` gives the nested dicts back, holding the parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        attach_tree(self, tree)
+
+    def tree(self) -> dict:
+        return module_tree(self)
+
+
+def attach_tree(module: nn.Module, tree: dict) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            module.add_module(k, ParamTree(v))
+        elif isinstance(v, list):
+            module.add_module(k, nn.ModuleList(ParamTree(i) for i in v))
+        else:
+            t = v if isinstance(v, torch.Tensor) else torch.tensor(
+                np.array(v))
+            module.register_parameter(k, nn.Parameter(t))
+
+
+def module_tree(module: nn.Module) -> dict:
+    """The tree :func:`attach_tree` laid out on ``module``: nested dicts
+    and lists holding the module's own parameters."""
+    out = dict(module._parameters)
+    for k, child in module._modules.items():
+        out[k] = [module_tree(c) for c in child] \
+            if isinstance(child, nn.ModuleList) else module_tree(child)
+    return out
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def map_tree(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None,
+             path: Tuple[str, ...] = ()):
+    """``tree``'s structure with ``fn(path, leaf, *leaves of rest)`` at each
+    leaf, as ``jax.tree_util`` walks a pytree: dicts in sorted key order,
+    lists, tuples and NamedTuples; ``path`` holds dict keys, sequence
+    indices and ``.field`` for a NamedTuple field.  Trees ``rest`` of the
+    same structure are zipped in; ``is_leaf(x)`` true stops the walk at
+    ``x``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree, *rest)
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf, path=path + (str(k),))
+                for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(map_tree(fn, getattr(tree, f),
+                                     *(getattr(r, f) for r in rest),
+                                     is_leaf=is_leaf, path=path + (f".{f}",))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf, path=path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree, *rest)
+
+
+def flatten_tree(tree) -> Dict[str, np.ndarray]:
+    """``{dotted pytree path: leaf}`` of a tree (:func:`map_tree`'s)."""
+    out: Dict[str, np.ndarray] = {}
+    map_tree(lambda p, v: out.__setitem__(".".join(p), v), tree)
+    return out
+
+
+def tree_like(tree, flat: dict):
+    """``tree``'s structure holding ``flat[dotted path]`` at each leaf (the
+    inverse of :func:`flatten_tree`)."""
+    return map_tree(lambda p, _: flat[".".join(p)], tree)
 
 
 # --------------------------------------------------------------------- norms

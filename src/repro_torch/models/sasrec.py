@@ -1,19 +1,22 @@
-"""SASRec (Self-Attentive Sequential Recommendation, arXiv:1808.09781),
-serving side: ``encode``, ``score_catalog`` and ``score_candidates``.
+"""SASRec (Self-Attentive Sequential Recommendation, arXiv:1808.09781):
+``encode``, the training loss ``bce_loss`` (the paper's BCE with one
+sampled negative per position), ``score_catalog`` and
+``score_candidates``.
 
 Item-embedding table (the huge-sparse-table regime) + 2 causal
 self-attention blocks over length-50 histories + dot-product scoring.
-The item lookups (histories and candidates) go through the embedding_bag
-kernel as one-index bags, sum mode, weight 1 (``kernels/embedding_bag``:
-CUDA tensors launch it, CPU tensors take its plain version): row 0 is a
-real row, so the result is the direct gather bit for bit.  The reference
-indexes ``item_emb`` directly although its docstring routes the lookups
-through the bag; the port does route them, while :func:`set_use_kernel`
-is on (the default), and indexes directly, as the reference, when off.
+The item lookups (histories, targets and candidates) go through the
+embedding_bag kernel as one-index bags, sum mode, weight 1
+(``kernels/embedding_bag``: CUDA tensors launch it, CPU tensors take its
+plain version): row 0 is a real row, so the result is the direct gather
+bit for bit.  The reference indexes ``item_emb`` directly although its
+docstring routes the lookups through the bag; the port does route them
+while :func:`set_use_kernel` is on (the default), except where autograd
+records through the table (the kernel has no backward): then, and
+whenever the seam is off, it indexes directly, as the reference.
 ``score_catalog``'s ``h @ item_emb.T`` stays a plain matrix product, and
 the blocks' attention stays plain torch: it masks padded keys, which the
-flash kernel cannot express.  ``bce_loss`` comes with the training slice
-of the port.
+flash kernel cannot express.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.analytics import check_device
 from repro_torch.kernels.embedding_bag import ops as eb_ops
@@ -30,16 +34,16 @@ from .layers import params_from_jax
 
 Param = dict
 
-__all__ = ["SASRecConfig", "encode", "init_params", "params_from_jax",
-           "score_candidates", "score_catalog", "set_use_kernel",
-           "table_rows"]
+__all__ = ["SASRecConfig", "bce_loss", "encode", "init_params",
+           "params_from_jax", "score_candidates", "score_catalog",
+           "set_use_kernel", "table_rows"]
 
 _USE_KERNEL = True
 
 
 def set_use_kernel(flag: bool) -> None:
     """Route the item lookups through the embedding_bag kernel (the
-    default), or index the table directly when off."""
+    default, off the grad path), or index the table directly when off."""
     global _USE_KERNEL
     _USE_KERNEL = flag
 
@@ -104,10 +108,14 @@ def _ln(x, scale, eps=1e-6):
 
 def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` (idx of any shape): one-index bags of the
-    embedding_bag kernel while the kernel is on."""
-    if not _USE_KERNEL:
+    embedding_bag kernel while the kernel is on, unless autograd records
+    through ``table``."""
+    if not _USE_KERNEL or (torch.is_grad_enabled() and table.requires_grad):
         return table[idx]
-    rows = eb_ops.embedding_bag(table, idx.reshape(-1, 1), mode="sum")
+    # nothing records here: a trained parameter goes in detached (the
+    # wrapper refuses any tensor that requires grad)
+    rows = eb_ops.embedding_bag(table.detach(), idx.reshape(-1, 1),
+                                mode="sum")
     return rows.reshape(*idx.shape, table.shape[1])
 
 
@@ -135,6 +143,20 @@ def encode(params: Param, hist: torch.Tensor, cfg: SASRecConfig):
         xn = _ln(x, blk["ln2"])
         x = x + torch.relu(xn @ blk["w1"]) @ blk["w2"]
     return x * pad_mask[:, :, None]
+
+
+def bce_loss(params: Param, batch: dict, cfg: SASRecConfig):
+    """batch: hist (B,S), pos (B,S) next-item targets, neg (B,S) sampled
+    negatives; 0 = pad."""
+    h = encode(params, batch["hist"], cfg)                 # (B, S, d)
+    pe = _lookup(params["item_emb"], batch["pos"])
+    ne = _lookup(params["item_emb"], batch["neg"])
+    pos_logit = torch.sum(h * pe, dim=-1)
+    neg_logit = torch.sum(h * ne, dim=-1)
+    mask = (batch["pos"] > 0).to(h.dtype)
+    loss = -(F.logsigmoid(pos_logit) + F.logsigmoid(-neg_logit)) * mask
+    loss = torch.sum(loss) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss, {"loss": loss}
 
 
 @torch.no_grad()

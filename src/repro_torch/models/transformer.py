@@ -1,31 +1,38 @@
-"""Decoder-only LM (dense) with GQA, RoPE variants, sliding-window/global
-mixes and KV-cache decode: the serving side of the reference's
-``models/transformer.py`` (``forward``, ``prefill``, ``decode_step``) for
-the three dense LM architectures (phi4-mini, gemma3, chatglm3).
+"""Decoder-only LM (dense + MoE) with GQA, RoPE variants,
+sliding-window/global mixes, KV-cache decode and the training loss: the
+reference's ``models/transformer.py`` (``forward``, ``lm_loss``,
+``chunked_ce``, ``prefill``, ``decode_step``) for the five LM
+architectures (moonshot, qwen3-moe, phi4-mini, gemma3, chatglm3).
 
 Parameters are the reference's pytree as a dict of tensors, layer
-parameters stacked on a leading (n_layers,) dim; ``jax.lax.scan`` over
-layers becomes a Python loop.  ``dist.constrain`` is the identity
-without a mesh and is dropped; ``decode_attn="splitk"`` needs a mesh, so
-decode takes ``_decode_attn`` as the reference does without one.  MoE
-layers (``models/moe.py``), ``lm_loss`` and ``chunked_ce`` come with the
-training slice of the port.
+parameters stacked on a leading (n_layers,) dim (``layers.ParamTree``
+holds one as a module for the optimizer); ``jax.lax.scan`` over layers
+becomes a Python loop and ``jax.checkpoint`` (``remat="layer"``, and
+each vocab chunk of ``chunked_ce``) becomes
+``torch.utils.checkpoint`` without reentry, applied while autograd
+records.  ``dist.constrain`` is the identity without a mesh and is
+dropped; ``decode_attn="splitk"`` needs a mesh, so decode takes
+``_decode_attn`` as the reference does without one.
 
 Attention goes through the flash_attention kernel (``kernels/
 flash_attention``: CUDA tensors launch it, CPU tensors take its plain
-version) while :func:`set_use_kernel` is on, the default.  Off, it runs
-the reference's own attention math (``_windowed_attention``,
-``_decode_attn``) on any device: the plain twin that tests and
-``chip_smoke.py`` hold the kernel path against.
+version) while :func:`set_use_kernel` is on, the default, except where
+autograd records through it: the kernel has no backward, so a call with
+grad enabled and q, k or v requiring grad takes the reference's plain
+math (``_windowed_attention``), as the reference trains.  Off, every
+call takes the plain math (``_windowed_attention``, ``_decode_attn``)
+on any device: the plain twin that tests and ``chip_smoke.py`` hold the
+kernel path against.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.analytics import check_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -33,19 +40,21 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from .layers import (NEG_INF, AttnConfig, _repeat_kv, attn_qkv, embed,
                      init_attn, init_embedding, init_mlp, mlp_block,
                      params_from_jax, rms_norm, unembed, write_cache)
+from .moe import MoEConfig, init_moe, moe_block
 
 Param = dict
 
-__all__ = ["LMConfig", "decode_step", "forward", "forward_features",
-           "init_cache", "init_params", "params_from_jax", "prefill",
-           "set_use_kernel"]
+__all__ = ["LMConfig", "chunked_ce", "decode_step", "forward",
+           "forward_features", "init_cache", "init_params", "lm_loss",
+           "params_from_jax", "prefill", "set_use_kernel"]
 
 _USE_KERNEL = True
 
 
 def set_use_kernel(flag: bool) -> None:
-    """Route attention through the flash_attention kernel (the default), or
-    through the reference's plain attention math when off."""
+    """Route attention through the flash_attention kernel (the default,
+    off the grad path), or through the reference's plain attention math
+    when off."""
     global _USE_KERNEL
     _USE_KERNEL = flag
 
@@ -66,12 +75,12 @@ class LMConfig:
     # cycle of per-layer windows; 0 = global attention.  gemma3 uses
     # (512,)*5 + (0,) i.e. 5 local : 1 global.
     window_pattern: Tuple[int, ...] = (0,)
-    moe: Optional[Any] = None          # MoE layers: a later slice
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = True
     embed_scale: bool = False          # gemma multiplies embeddings by sqrt(d)
     aux_loss_weight: float = 0.01
-    remat: str = "layer"
-    loss_chunks: int = 16
+    remat: str = "layer"               # layer | none (activation ckpt)
+    loss_chunks: int = 16              # vocab chunks for fused CE (0=full)
     decode_attn: str = "gather"        # "splitk" needs a mesh (a later slice)
     dtype: str = "bfloat16"
 
@@ -89,24 +98,49 @@ class LMConfig:
         return np.asarray([pat[i % len(pat)] for i in range(self.n_layers)],
                           dtype=np.int32)
 
+    def _attn_params(self) -> int:
+        a = self.attn
+        return self.d_model * (a.n_heads + 2 * a.n_kv) * a.d_head \
+            + a.n_heads * a.d_head * self.d_model
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (models/moe.py) are not ported yet; "
-            f"they come with the LM training slice")
+    def _ffn_params(self, experts: int) -> int:
+        m = self.moe
+        return experts * 3 * self.d_model * m.d_expert \
+            + self.d_model * m.n_experts \
+            + (3 * self.d_model * m.n_shared * m.d_expert if m.n_shared
+               else 0)
+
+    def _total(self, ffn: int) -> int:
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (self._attn_params() + ffn
+                                + 2 * self.d_model) + emb
+
+    def n_params(self) -> int:
+        """Total parameter count (for 6ND model-flops accounting)."""
+        return self._total(self._ffn_params(self.moe.n_experts) if self.moe
+                           else 3 * self.d_model * self.d_ff)
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE top-k only)."""
+        if not self.moe:
+            return self.n_params()
+        return self._total(self._ffn_params(self.moe.top_k))
 
 
 # --------------------------------------------------------------------- init
 def init_layer(gen: torch.Generator, cfg: LMConfig, device) -> Param:
     dt = cfg.tdtype
-    return {
+    p = {
         "attn": init_attn(gen, cfg.attn, dt, device),
         "ln_attn": torch.zeros((cfg.d_model,), dtype=dt, device=device),
         "ln_mlp": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, gated=True, dtype=dt,
-                        device=device),
     }
+    if cfg.moe:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, dt, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, gated=True, dtype=dt,
+                            device=device)
+    return p
 
 
 def _stack(trees: list) -> Param:
@@ -118,7 +152,6 @@ def _stack(trees: list) -> Param:
 def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Param:
     """Random parameters on ``device`` from a ``torch.Generator`` seeded
     with ``seed`` (the reference's distributions, not its random bits)."""
-    _dense_only(cfg)
     check_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     p = {
@@ -134,10 +167,13 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Param:
     return p
 
 
-def _layer(params: Param, i: int) -> Param:
-    """Layer ``i``'s parameters: views into the stacked tensors."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in params.items()}
+def _unstack(tree: Param) -> list:
+    """Per-layer views of the stacked layer parameters: one ``unbind``
+    per tensor, so that autograd stacks each tensor's gradient once."""
+    cols = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 # ------------------------------------------------------------------ forward
@@ -162,10 +198,32 @@ def _windowed_attention(q, k, v, positions, window: int):
 
 def _attend(q, k, v, positions, window: int):
     """Causal self-attention over one prompt (positions 0..S-1) with the
-    layer's window (0 = global)."""
-    if _USE_KERNEL:
+    layer's window (0 = global): the kernel unless autograd records
+    through q, k or v."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if _USE_KERNEL and not grad:
         return fa_ops.mha(q, k, v, causal=True, window=int(window) or None)
     return _windowed_attention(q, k, v, positions, int(window))
+
+
+def _ffn(cfg: LMConfig, lp: Param, h):
+    """The layer's FFN: (y, MoE aux loss, 0 for a dense layer)."""
+    if cfg.moe:
+        return moe_block(lp["moe"], h, cfg.moe)
+    return mlp_block(lp["mlp"], h), torch.zeros((), dtype=torch.float32,
+                                                device=h.device)
+
+
+def _layer_fwd(cfg: LMConfig, x, positions, lp: Param, window: int):
+    """One layer over a whole prompt: (x, MoE aux, k, v)."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["ln_attn"])
+    q, k, v = attn_qkv(lp["attn"], h, cfg.attn, positions)
+    o = _attend(q, k, v, positions, window)
+    x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+    y, aux = _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"]))
+    return x + y, aux, k, v
 
 
 def _embed(params: Param, tokens: torch.Tensor, cfg: LMConfig):
@@ -176,21 +234,23 @@ def _embed(params: Param, tokens: torch.Tensor, cfg: LMConfig):
 
 
 def _layers(params: Param, cfg: LMConfig, x, positions, kv_out=None):
-    """Every layer over a whole prompt; with ``kv_out`` = (k_cache,
-    v_cache), each layer's K/V also go into its cache slots [0, S)."""
-    b, s, _ = x.shape
-    for i, window in enumerate(cfg.layer_windows()):
-        lp = _layer(params["layers"], i)
-        h = rms_norm(x, lp["ln_attn"])
-        q, k, v = attn_qkv(lp["attn"], h, cfg.attn, positions)
-        o = _attend(q, k, v, positions, window)
-        x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
-        h = rms_norm(x, lp["ln_mlp"])
-        x = x + mlp_block(lp["mlp"], h)
+    """Every layer over a whole prompt -> (x, summed MoE aux); with
+    ``kv_out`` = (k_cache, v_cache), each layer's K/V also go into its
+    cache slots [0, S).  While autograd records, ``remat="layer"``
+    recomputes each layer in the backward pass."""
+    s = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat == "layer" and torch.is_grad_enabled()
+    for i, (lp, window) in enumerate(zip(_unstack(params["layers"]),
+                                         cfg.layer_windows())):
+        args = (cfg, x, positions, lp, int(window))
+        x, a, k, v = checkpoint(_layer_fwd, *args, use_reentrant=False) \
+            if remat else _layer_fwd(*args)
+        aux = aux + a
         if kv_out is not None:
             kv_out[0][i, :, :s] = k
             kv_out[1][i, :, :s] = v
-    return x
+    return x, aux
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -199,13 +259,11 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward_features(params: Param, tokens: torch.Tensor, cfg: LMConfig):
-    """tokens (B, S) -> final hidden states (B, S, d), plus MoE aux (0)."""
-    _dense_only(cfg)
+    """tokens (B, S) -> final hidden states (B, S, d), plus MoE aux."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
-    x = _layers(params, cfg, x, _positions(b, s, x.device))
-    x = rms_norm(x, params["ln_f"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _layers(params, cfg, x, _positions(b, s, x.device))
+    return rms_norm(x, params["ln_f"]), aux
 
 
 def forward(params: Param, tokens: torch.Tensor, cfg: LMConfig):
@@ -213,6 +271,72 @@ def forward(params: Param, tokens: torch.Tensor, cfg: LMConfig):
     x, aux = forward_features(params, tokens, cfg)
     out_emb = params.get("unembed", params["embed"])
     return unembed(out_emb, x), aux
+
+
+def _ce_chunk(x, tb, labels, m, s, ll, lo: int):
+    """Fold one vocab chunk ``tb`` (rows lo..lo+Vc) into the running
+    (max, sumexp, label logit) of every token."""
+    # the (T, Vc) logits in fp32 from the products on: never rounded to
+    # the activation dtype (the reference's preferred_element_type)
+    lg = x.float() @ tb.float().T
+    nm = torch.maximum(m, torch.amax(lg, dim=-1))
+    s = s * torch.exp(m - nm) + torch.sum(torch.exp(lg - nm[:, None]),
+                                          dim=-1)
+    vc = tb.shape[0]
+    in_chunk = (labels >= lo) & (labels < lo + vc)
+    idx = torch.clamp(labels - lo, 0, vc - 1).long()
+    lbl = torch.gather(lg, 1, idx[:, None])[:, 0]
+    return nm, s, torch.where(in_chunk, lbl, ll)
+
+
+def chunked_ce(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+               n_chunks: int) -> torch.Tensor:
+    """Fused unembed + cross-entropy, streamed over vocab chunks.
+
+    Never materializes the (T, V) logits: each step computes one
+    (T, V/n_chunks) block in fp32, folds it into a running (max, sumexp)
+    pair and picks out the label logit.  While autograd records, each
+    chunk is recomputed in the backward pass, so the backward holds one
+    block at a time.  x: (T, d); table: (V, d); labels: (T,) -> per-token
+    nll (T,) fp32.
+    """
+    t = x.shape[0]
+    v = table.shape[0]
+    vc = v // n_chunks
+    if vc * n_chunks != v:
+        raise ValueError(f"vocab {v} is not a multiple of {n_chunks} chunks")
+    remat = torch.is_grad_enabled()
+    m = torch.full((t,), -torch.inf, dtype=torch.float32, device=x.device)
+    s = torch.zeros((t,), dtype=torch.float32, device=x.device)
+    ll = torch.zeros((t,), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        args = (x, table[i * vc:(i + 1) * vc], labels, m, s, ll, i * vc)
+        m, s, ll = checkpoint(_ce_chunk, *args, use_reentrant=False) \
+            if remat else _ce_chunk(*args)
+    return m + torch.log(torch.clamp(s, min=1e-30)) - ll
+
+
+def lm_loss(params: Param, batch: dict, cfg: LMConfig):
+    """batch: tokens (B, S), labels (B, S) (< 0 = masked) -> (loss + the
+    weighted MoE aux, {"loss", "aux"})."""
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    if cfg.loss_chunks and cfg.vocab % cfg.loss_chunks == 0:
+        x, aux = forward_features(params, batch["tokens"], cfg)
+        b, s_, d = x.shape
+        out_emb = params.get("unembed", params["embed"])
+        nll = chunked_ce(x.reshape(b * s_, d), out_emb["table"],
+                         labels.reshape(-1), cfg.loss_chunks)
+        nll = nll.reshape(b, s_)
+    else:
+        logits, aux = forward(params, batch["tokens"], cfg)
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        # a masked label's logit is multiplied by 0 below: any row will do
+        ll = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None]
+                          )[..., 0].float()
+        nll = lse - ll
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + cfg.aux_loss_weight * aux, {"loss": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------- decode
@@ -230,7 +354,6 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
 def prefill(params: Param, tokens: torch.Tensor, cfg: LMConfig,
             max_len: Optional[int] = None):
     """Run the prompt, return last-position logits + populated cache."""
-    _dense_only(cfg)
     b, s = tokens.shape
     max_len = max_len or s
     if max_len < s:
@@ -239,7 +362,8 @@ def prefill(params: Param, tokens: torch.Tensor, cfg: LMConfig,
     shape = (cfg.n_layers, b, max_len, cfg.n_kv, cfg.d_head)
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    x = _layers(params, cfg, x, _positions(b, s, x.device), kv_out=(ks, vs))
+    x, _ = _layers(params, cfg, x, _positions(b, s, x.device),
+                   kv_out=(ks, vs))
     x = rms_norm(x, params["ln_f"])
     out_emb = params.get("unembed", params["embed"])
     logits = unembed(out_emb, x[:, -1:, :])
@@ -256,17 +380,16 @@ def decode_step(params: Param, cache: dict, tokens: torch.Tensor,
     The new token's K/V are written into ``cache["k"]``/``cache["v"]`` in
     place (the reference returns updated copies); the returned cache
     shares those tensors and has ``len + 1``."""
-    _dense_only(cfg)
     x = _embed(params, tokens, cfg)
     lens = cache["len"]
-    for i, window in enumerate(cfg.layer_windows()):
-        lp = _layer(params["layers"], i)
+    for i, (lp, window) in enumerate(zip(_unstack(params["layers"]),
+                                         cfg.layer_windows())):
         h = rms_norm(x, lp["ln_attn"])
         o, _, _ = _decode_attn(lp["attn"], h, cfg, cache["k"][i],
                                cache["v"][i], lens, int(window))
         x = x + o
-        h = rms_norm(x, lp["ln_mlp"])
-        x = x + mlp_block(lp["mlp"], h)
+        y, _ = _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"]))
+        x = x + y
     x = rms_norm(x, params["ln_f"])
     out_emb = params.get("unembed", params["embed"])
     logits = unembed(out_emb, x)

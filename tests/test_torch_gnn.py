@@ -35,6 +35,7 @@ from repro.models import gnn as ref_gnn
 from repro.optim import adamw as ref_adamw
 from repro_torch.configs import get_arch
 from repro_torch.models import gnn
+from repro_torch.models.layers import flatten_tree
 from repro_torch.optim import adamw
 
 ARCHS = ["gin-tu", "pna", "gat-cora", "dimenet"]
@@ -113,7 +114,7 @@ def check_arch(arch_id, task, make_batch):
     params = ref_gnn.init_params(jax.random.PRNGKey(0), ref_cfg)
     model = gnn.params_from_jax(np_tree(params), cfg)
     assert sorted(dict(model.named_parameters())) == sorted(
-        gnn.flatten_tree(np_tree(params)))
+        flatten_tree(np_tree(params)))
 
     jb, tb = to_jax(b), to_torch(b)
     want = np.asarray(ref_gnn.forward(params, jb, ref_cfg))
@@ -134,7 +135,7 @@ def check_arch(arch_id, task, make_batch):
     grads = torch.autograd.grad(loss, list(named.values()))
     np.testing.assert_allclose(float(loss.detach()), float(loss_ref),
                                rtol=1e-4, atol=1e-4)
-    flat_g = gnn.flatten_tree(np_tree(grads_ref))
+    flat_g = flatten_tree(np_tree(grads_ref))
     for name, g in zip(named, grads):
         # 1e-4 relative, and 1e-4 of the tensor's largest entry absolute
         # (the graph task's gradients reach O(100), where an element of
@@ -143,7 +144,7 @@ def check_arch(arch_id, task, make_batch):
         np.testing.assert_allclose(g.numpy(), flat_g[name], rtol=1e-4,
                                    atol=1e-4 * scale, err_msg=name)
 
-    flat_new = gnn.flatten_tree(np_tree(new_ref))
+    flat_new = flatten_tree(np_tree(new_ref))
     same_grads = {k: torch.from_numpy(v) for k, v in flat_g.items()}
     upd, _, _ = adamw.update(adamw.AdamWConfig(**OPT), same_grads,
                              adamw.init(named),
@@ -178,7 +179,7 @@ def test_torch_init_and_param_names(arch_id):
     shapes, is reproducible from its generator, and runs forward."""
     cfg = reduced(get_arch(arch_id).config)
     ref_cfg = reduced(ref_get_arch(arch_id).config)
-    ref_shapes = {k: v.shape for k, v in gnn.flatten_tree(np_tree(
+    ref_shapes = {k: v.shape for k, v in flatten_tree(np_tree(
         ref_gnn.init_params(jax.random.PRNGKey(1), ref_cfg))).items()}
     a = gnn.init_model(cfg, torch.Generator().manual_seed(5))
     b = gnn.init_model(cfg, torch.Generator().manual_seed(5))
@@ -192,7 +193,7 @@ def test_torch_init_and_param_names(arch_id):
     c = gnn.params_from_jax(tree, cfg)
     for name, p in c.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(),
-                                      gnn.flatten_tree(tree)[name])
+                                      flatten_tree(tree)[name])
 
 
 def test_gin_eps_is_trained_whatever_the_flag_says():

@@ -1,6 +1,7 @@
-"""The port's synthetic generators give the reference's lists bit for bit
-from one numpy seed: the TAO request mix (``tao_workload``) and the
-Bitcoin-like chain (``blockchain``)."""
+"""The port's synthetic generators give the reference's lists and arrays
+bit for bit from one numpy seed: the TAO request mix (``tao_workload``),
+the Bitcoin-like chain (``blockchain``) and the training batches
+(``lm_batch``, ``token_batches``, ``sasrec_batch``)."""
 
 import numpy as np
 import pytest
@@ -50,5 +51,30 @@ def test_generators_leave_the_stream_where_the_reference_does(seed):
     ref_synth.tao_workload(a, 50, 0.9, vertices)
     port_synth.blockchain(b, 5)
     port_synth.tao_workload(b, 50, 0.9, vertices)
+    assert a.integers(0, 2**31, 8).tolist() == b.integers(0, 2**31,
+                                                          8).tolist()
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_training_batches_match_reference(seed):
+    """lm_batch, token_batches (Zipfian) and sasrec_batch: the reference's
+    arrays bit for bit, dtypes included, and the generator left where the
+    reference leaves it."""
+    a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+    pairs = [(ref_synth.lm_batch(a, 512, 3, 17),
+              port_synth.lm_batch(b, 512, 3, 17))]
+    ra = ref_synth.token_batches(a, 1000, 2, 9)
+    pb = port_synth.token_batches(b, 1000, 2, 9)
+    pairs += [(next(ra), next(pb)) for _ in range(3)]
+    pairs.append((ref_synth.sasrec_batch(a, 100, 4, 6),
+                  port_synth.sasrec_batch(b, 100, 4, 6)))
+    for want, got in pairs:
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype == np.int32
+            np.testing.assert_array_equal(got[k], want[k])
+    assert pairs[0][1]["tokens"].shape == (3, 17)
+    np.testing.assert_array_equal(pairs[1][1]["tokens"][:, 1:],
+                                  pairs[1][1]["labels"][:, :-1])
     assert a.integers(0, 2**31, 8).tolist() == b.integers(0, 2**31,
                                                           8).tolist()

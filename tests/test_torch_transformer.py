@@ -25,7 +25,8 @@ from repro_torch.configs import ARCHS, get_arch
 from repro_torch.launch.train import reduced_config
 from repro_torch.models import transformer as P
 
-DENSE = [a for a, s in ARCHS.items() if s.family == "lm"]
+DENSE = [a for a, s in ARCHS.items()
+         if s.family == "lm" and s.config.moe is None]
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -115,10 +116,15 @@ def test_prefill_decode_consistent(arch_id):
 
 
 def test_moe_and_short_cache_are_refused():
-    cfg = dataclasses.replace(reduced_config(get_arch("gemma3-1b")),
-                              moe=object())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        P.init_params(cfg, device="cpu")
+    """MoE configs are no longer refused (``models/moe.py`` is ported):
+    a reduced MoE config initialises with the reference's tree; a cache
+    shorter than the prompt still is."""
+    cfg = reduced_config(get_arch("moonshot-v1-16b-a3b"))
+    p1 = P.init_params(cfg, device="cpu")
+    ref = R.init_params(jax.random.PRNGKey(0),
+                        ref_reduced(ref_get_arch("moonshot-v1-16b-a3b")))
+    assert jax.tree_util.tree_structure(p1) == \
+        jax.tree_util.tree_structure(ref)
     _, cfg, _, pp = setup("phi4-mini-3.8b")
     with pytest.raises(ValueError, match="max_len"):
         P.prefill(pp, torch.zeros((1, 8), dtype=torch.long), cfg, max_len=4)
