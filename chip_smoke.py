@@ -153,7 +153,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
    other.
    The sizes of 6a-6d are ``TRAIN_SIZES[--train-sizes]``: ``full`` (the
    default) as above, ``rehearsal`` a quick pass.
-7. One JSON line per the kernels table, the card's name and power limit,
+7. Distribution (``dist/`` on ``torch.distributed``, ``phase_dist``): the
+   single-card references run first in this process, then ranks are
+   spawned (``launch.mesh.run_local``); each rank prints its backend,
+   world size, device, seconds and counted collective bytes, and a
+   failing check in any rank fails the run.
+7a. qwen3-moe-235b-a22b's MoE layer at full width (128 experts top-8,
+   d 4,096, d_expert 1,536, bf16), 4 x 4,096 tokens, on (data 2, model
+   4): 8 gloo ranks on the card, each holding its 32 experts, through
+   ``moe_block(moe_impl="a2a")`` against the single-card scatter path at
+   the reference tests' 2e-4 (ample capacity, and 1.25, where pairs
+   drop); the exact-sized wire buffer (``moe_alltoall_exact_c_dev``)
+   bit for bit against the static one.  Then moonshot-v1-16b-a3b (depth
+   2, a2a) behind ``LMServer`` on (model 4): prefill on ``flash_tc`` and
+   8 greedy steps, tokens and logits (2e-4) against the single-card
+   server's, every attention call held to its plain version.
+7b. gemma3-1b split-K decode on (model 4), 4 gloo ranks each holding its
+   8,192-position block of a 32k cache: 8 x 1,024 prompts and 32 greedy
+   steps through ``LMServer``, logits against the single-card server
+   (gather decode on ``flash_decode``) per step in bf16 at 26 layers
+   and in fp32 at 6, every prefill attention call held to its plain
+   version; per layer and step only the partials' bytes cross.
+7c. ``grad_sync`` and ``cross_pod_allreduce`` on (pod 2, data 2, model
+   2) over SASRec's parameter tree (1,000,032 x 50 table), a different
+   tree per rank, against their fp64 mean (plain and int8 across pods);
+   replicated input is the identity.
+7d. A world of one on NCCL: 7a's path and 7c's syncs on (1, 1) meshes
+   give the single-device results exactly; with two cards or more, 7a
+   also runs on NCCL across them.  ``DIST_SIZES[--dist-sizes]`` holds
+   the sizes (``rehearsal``: reduced configs; with ``device="cpu"`` the
+   phase runs on the CPU, 7d on gloo).
+8. One JSON line per the kernels table, the card's name and power limit,
    and last the result line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -167,6 +197,7 @@ import dataclasses
 import importlib
 import io
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -3299,6 +3330,665 @@ def phase_train_entry_points(devices=("cuda", "cpu")) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 7: distribution (dist/ on torch.distributed), ranks spawned on the
+# card
+# ---------------------------------------------------------------------------
+A2A_TOL = 2e-4         # max |y a2a - y scatter| / max |y scatter|: the
+#                        reference tests' tolerance (test_distributed_
+#                        numerics.py), held at bf16 too: the receiving
+#                        side runs the scatter path's batched products;
+#                        also 7a serve's logits (max |diff| / max |logit|
+#                        per call) against the single-card server, whose
+#                        attention runs the same kernels
+SPLITK_F32_TOL = 5e-5  # the same for split-K logits in fp32 (the
+#                        reference test's); bf16 takes LM_LOGIT_TOL, the
+#                        noise of two attention routes over 26 layers
+GRAD_TOL = 1e-6        # plain grad_sync vs the fp64 mean: rtol = atol,
+#                        one fp32 rounding per hop
+GRAD_Q_TOL = 0.02      # int8 across pods: rtol = atol of the reference
+#                        test; each value is also held to half an int8
+#                        step of its tensor, max |x| / 254
+GRAD_STD = 0.35        # 7c's gradients: N(0, GRAD_STD^2), so the largest
+#                        of the table's 50M values (~2.0) lies in the
+#                        reference test's range (its values reach 2.3);
+#                        at N(0, 1) half an int8 step (~5.7 / 254) alone
+#                        exceeds 0.02
+
+DIST_SIZES = {
+    "full": {
+        # skew: 7a's tokens are N(0, 1) plus skew times one shared N(0, 1)
+        # vector, so routing favours some experts and capacity factor 1.25
+        # drops pairs (0.5 made the busiest expert take 5x the mean load,
+        # and the ample capacity's buffers overflowed the card)
+        "7a": dict(arch="qwen3-moe-235b-a22b", batch=4, seq=4096,
+                   mesh=(2, 4), skew=0.15),
+        "7a_serve": dict(arch="moonshot-v1-16b-a3b", layers=2, batch=4,
+                         prompt=256, steps=8, model=4),
+        "7b": dict(layers=26, batch=8, prompt=1024, steps=32,
+                   max_len=LM_SEQ, model=4, f32_layers=6, f32_steps=4),
+        "7c": dict(arch="sasrec", mesh=(2, 2, 2)),
+    },
+    "rehearsal": {
+        "7a": dict(arch="qwen3-moe-235b-a22b", batch=4, seq=16,
+                   mesh=(2, 4), skew=0.5, reduced=True),
+        "7a_serve": dict(arch="moonshot-v1-16b-a3b", layers=2, batch=4,
+                         prompt=16, steps=4, model=4, reduced=True),
+        "7b": dict(layers=2, batch=4, prompt=8, steps=8, max_len=16,
+                   model=4, f32_layers=2, f32_steps=4, reduced=True),
+        "7c": dict(arch="sasrec", mesh=(2, 2, 2), reduced=True),
+    },
+}
+
+
+def _arch_cfg(arch: str, reduced: bool = False):
+    from repro_torch.launch.train import reduced_config
+    spec = get_arch(arch)
+    return reduced_config(spec) if reduced else spec.config
+
+
+def moe_layer(seed: int, cfg, experts, device) -> dict:
+    """One MoE layer of the LM config ``cfg`` (``moe_block``'s tree,
+    without shared experts): the router, and the weights of the experts
+    ``experts``, each expert drawn from its own seed so that a rank makes
+    its block alone (the reference's distributions)."""
+    m, d, dt = cfg.moe, cfg.d_model, cfg.tdtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = {"router": torch.randn((d, m.n_experts), generator=gen,
+                               device=device) / np.sqrt(d)}
+    for i, (name, (rows, cols, s)) in enumerate((
+            ("w_gate", (d, m.d_expert, d)), ("w_up", (d, m.d_expert, d)),
+            ("w_down", (m.d_expert, d, m.d_expert)))):
+        ws = []
+        for e in experts:
+            g = torch.Generator(device=device).manual_seed(
+                seed * 1_000_003 + 3 * e + i)
+            ws.append(torch.randn((rows, cols), generator=g, device=device,
+                                  dtype=dt) * float(1 / np.sqrt(s)))
+        p[name] = torch.stack(ws)
+    return p
+
+
+def moe_tokens(seed: int, cfg, batch: int, seq: int, skew: float, device):
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=device)
+    shared = torch.randn((cfg.d_model,), generator=gen, device=device)
+    return (x + skew * shared).to(cfg.tdtype)
+
+
+def _loads(p, x, m) -> torch.Tensor:
+    """Pairs routed to each expert (the scatter path's top-k)."""
+    from repro_torch.models import moe
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"],
+                          dim=-1)
+    _, idx = moe.top_k(probs, m.top_k)
+    return torch.bincount(idx.reshape(-1), minlength=m.n_experts)
+
+
+def _cuts(kw: dict, depth: str) -> str:
+    return ("cuts: reduced config (rehearsal)" if kw.get("reduced")
+            else f"cuts: {depth}; width uncut")
+
+
+def _rank_7a(rank, world, seed, ref_dir, device, arch, batch, seq, mesh,
+             skew, reduced=False):
+    """Expert-parallel MoE on a (data, model) mesh: ``moe_block``'s a2a
+    path on this rank's experts against the single-card scatter path at
+    the ample and the 1.25 capacity factor, and the exact-sized wire
+    buffer bit for bit against the static one."""
+    from repro_torch import dist
+    from repro_torch.dist import collectives
+    from repro_torch.models import moe
+    cfg = _arch_cfg(arch, reduced)
+    m = cfg.moe
+    mesh = dist.make_mesh(mesh, ("data", "model"))
+    n_model = mesh.shape["model"]
+    e_loc = m.n_experts // n_model
+    lo = mesh.coord("model") * e_loc
+    p = moe_layer(seed, cfg, range(lo, lo + e_loc), device)
+    x = moe_tokens(seed, cfg, batch, seq, skew, device)
+    ref = torch.load(os.path.join(ref_dir, "7a.pt"), map_location=device)
+    out = {"block_experts": int(p["w_gate"].shape[0]),
+           "block_bytes": sum(p[k].numel() * p[k].element_size()
+                              for k in ("w_gate", "w_up", "w_down"))}
+    dist.set_mesh(mesh)
+    try:
+        for label, cf in (("ample", ref["ample_cf"]), ("overflow", 1.25)):
+            c = dataclasses.replace(m, capacity_factor=cf, moe_impl="a2a")
+            dist.reset_counts()
+            t0 = time.perf_counter()
+            y, _ = moe.moe_block(p, x, c)
+            sync(device)
+            want = ref[label].to(device)
+            err = float((y.float() - want.float()).abs().max()
+                        / want.float().abs().max())
+            out[label] = {"err": err, "s": time.perf_counter() - t0,
+                          "sent": dict(dist.counts)}
+            if not err < A2A_TOL:
+                raise PhaseError(f"7a rank {rank}: a2a != scatter at "
+                                 f"capacity factor {cf}: {err} (tolerance "
+                                 f"{A2A_TOL})")
+        # the two-phase exact sizing against the static bound
+        t = batch * seq
+        xf = x.reshape(t, cfg.d_model)
+        logits = xf.float() @ p["router"]
+        cap = moe.capacity(t, dataclasses.replace(m, capacity_factor=1.25))
+        exact = collectives.moe_alltoall_exact_c_dev(logits, mesh, m.top_k,
+                                                     capacity=cap)
+        ys = {}
+        for name, c_dev, flag in (("static", 0, False), ("exact", exact,
+                                                         True)):
+            dist.reset_counts()
+            t0 = time.perf_counter()
+            ys[name] = collectives.moe_alltoall_block(
+                xf, logits, p["w_gate"], p["w_up"], p["w_down"], mesh,
+                m.top_k, c_dev, capacity=cap, exact_c_dev=flag)
+            sync(device)
+            out[name] = {"s": time.perf_counter() - t0,
+                         "sent": dict(dist.counts)}
+        t_loc = t // (mesh.shape["data"] * n_model)
+        out["c_dev"] = (exact, min(t_loc * m.top_k, e_loc * cap))
+        if not torch.equal(ys["exact"], ys["static"]):
+            raise PhaseError(f"7a rank {rank}: the exact-sized dispatch "
+                             f"(c_dev {exact}) differs from the static one")
+    finally:
+        dist.set_mesh(None)
+    return out
+
+
+def _rank_7c(rank, world, seed, ref_dir, device, arch, mesh, reduced=False):
+    """grad_sync and cross_pod_allreduce on (pod, data, model) over
+    SASRec's parameter tree, a different tree on each rank, against the
+    fp64 mean over the ranks of this rank's dp group."""
+    from repro_torch import dist
+    from repro_torch.dist.collectives import cross_pod_allreduce, grad_sync
+    from repro_torch.models import sasrec
+    from repro_torch.models.layers import flatten_tree
+    cfg = _arch_cfg(arch, reduced)
+    mesh = dist.make_mesh(mesh, ("pod", "data", "model"))
+    like = flatten_tree(sasrec.init_params(cfg, device=device))
+
+    def tree(r):
+        g = torch.Generator(device=device).manual_seed(seed * 1000 + r)
+        return {k: torch.randn(v.shape, generator=g, device=device)
+                * GRAD_STD for k, v in like.items()}
+
+    def within(got, want, tol, step):
+        """|got - want| within rtol = atol = tol and, for int8, within
+        half an int8 step of the largest input (``step``)."""
+        return all(torch.allclose(got[k].double(), want[k].double(),
+                                  rtol=tol, atol=tol)
+                   and (step is None or float((got[k].double()
+                                               - want[k].double()).abs()
+                                              .max()) <= step[k])
+                   for k in want)
+
+    def half_step(trees):
+        """Half an int8 step of each leaf's largest input, plus 4e-7
+        (a few fp32 roundings of values up to ~2.5)."""
+        return {k: max(float(t[k].abs().max()) for t in trees) / 254
+                + 4e-7 for k in like}
+
+    group = [r for r in range(world)
+             if r % mesh.shape["model"] == mesh.coord("model")]
+    mean = {k: torch.zeros(v.shape, dtype=torch.float64, device=device)
+            for k, v in like.items()}
+    step = {k: 0.0 for k in like}
+    for r in group:
+        t = tree(r)
+        step = {k: max(step[k], h) for k, h in half_step([t]).items()}
+        for k, v in t.items():
+            mean[k] += v.double() / len(group)
+    mine = tree(rank)
+    out = {"tree_bytes": sum(v.numel() * 4 for v in mine.values()),
+           "group": group}
+    for label, q in (("plain", False), ("int8", True)):
+        dist.reset_counts()
+        t0 = time.perf_counter()
+        got = grad_sync(mesh, mine, int8_cross_pod=q)
+        sync(device)
+        tol = GRAD_Q_TOL if q else GRAD_TOL
+        err = max(float((got[k].double() - mean[k]).abs().max())
+                  for k in mine)
+        out[label] = {"err": err, "s": time.perf_counter() - t0,
+                      "sent": dict(dist.counts)}
+        if not within(got, mean, tol, step if q else None):
+            raise PhaseError(f"7c rank {rank}: grad_sync ({label}) != the "
+                             f"fp64 mean of ranks {group}: max |err| {err} "
+                             f"(rtol = atol = {tol}; int8: half a step)")
+    same = tree(world)                  # one tree on every rank
+    for label, q in (("replicated", False), ("replicated int8", True)):
+        got = grad_sync(mesh, same, int8_cross_pod=q)
+        if not (within(got, same, GRAD_Q_TOL, half_step([same])) if q
+                else all(torch.equal(got[k], same[k]) for k in same)):
+            raise PhaseError(f"7c rank {rank}: grad_sync ({label}) of a "
+                             f"replicated tree is not the identity")
+    # the standalone hop: a pod-sharded table, averaged across pods
+    table = same["item_emb"]
+    half = table.shape[0] // 2
+    dist.reset_counts()
+    t0 = time.perf_counter()
+    got = cross_pod_allreduce(mesh, table, in_spec=dist.P("pod", None))
+    sync(device)
+    want = ((table[:half].double() + table[half:].double()) / 2).repeat(2, 1)
+    out["cross_pod"] = {"s": time.perf_counter() - t0,
+                        "sent": dict(dist.counts)}
+    if not torch.allclose(got.double(), want, rtol=GRAD_TOL, atol=GRAD_TOL):
+        raise PhaseError(f"7c rank {rank}: cross_pod_allreduce != the pod "
+                         f"mean")
+    if not torch.equal(cross_pod_allreduce(mesh, table), table):
+        raise PhaseError(f"7c rank {rank}: cross_pod_allreduce of a "
+                         f"replicated tensor is not the identity")
+    return out
+
+
+def _serve_lockstep(srv, prompts, ref, steps: int):
+    """Prefill then ``steps`` greedy steps fed the reference server's
+    tokens: (logits error per call, this server's own greedy tokens)."""
+    lg = srv.prefill(prompts)
+    errs, toks = [], []
+    for i in range(steps + 1):
+        want = ref["logits"][i].to(lg.device).float()
+        errs.append(float((lg.float() - want).abs().max()
+                          / want.abs().max()))
+        toks.append(lg.argmax(-1).cpu())
+        if i < steps:
+            lg = srv.step(ref["tokens"][i].to(lg.device))
+    return errs, torch.stack(toks)
+
+
+def reference_server(cfg, params, prompts, steps: int, max_len: int,
+                     device) -> dict:
+    """The single-card server's greedy run: tokens (steps + 1, B) and the
+    logits of every call (steps + 1, B, V)."""
+    from repro_torch.runtime import LMServer
+    srv = LMServer(params, cfg, prompts.shape[0], max_len, device=device)
+    lg = srv.prefill(prompts)
+    toks, logits = [], []
+    for i in range(steps + 1):
+        logits.append(lg.cpu())
+        toks.append(lg.argmax(-1).cpu())
+        if i < steps:
+            lg = srv.step(toks[-1].to(lg.device))
+    return {"tokens": torch.stack(toks), "logits": torch.stack(logits)}
+
+
+def _held_summary(att: list) -> dict:
+    """``attention_held``'s records in brief: calls held, and the worst
+    error in units of 2^-8 of |want| + row rms."""
+    return {"calls": len(att),
+            "worst_2^-8": max((r for _, r, _ in att), default=0.0) / 2 ** -8}
+
+
+def _check_held(label: str, att: list, want: int) -> None:
+    """Fail unless ``want`` attention calls were held and each passed."""
+    bad = sum(not ok for ok, _, _ in att)
+    if bad or len(att) != want:
+        raise PhaseError(f"{label}: {bad} of {len(att)} attention calls "
+                         f"differ from their plain version ({want} "
+                         f"expected; {FLASH_TOL} and FLASH_ROW_TOL)")
+
+
+def _serve_cfgs(arch, layers, reduced, **kw):
+    return dataclasses.replace(_arch_cfg(arch, reduced), n_layers=layers,
+                               **kw)
+
+
+def _rank_7a_serve(rank, world, seed, ref_dir, device, arch, layers, batch,
+                   prompt, steps, model, reduced=False):
+    """An MoE LM with moe_impl="a2a" behind LMServer on a (model) mesh,
+    this rank holding its block of every layer's experts, in lockstep
+    with the single-card scatter server's tokens."""
+    from repro_torch import dist
+    from repro_torch.models import transformer
+    from repro_torch.runtime import LMServer
+    cfg = _serve_cfgs(arch, layers, reduced)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, moe_impl="a2a"))
+    mesh = dist.make_mesh((model,), ("model",))
+    params = transformer.local_params(
+        transformer.init_params(cfg, seed=seed, device=device), cfg, mesh)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    ref = torch.load(os.path.join(ref_dir, "7a_serve.pt"))
+    prompts = ref["prompts"].numpy()
+    experts = params["layers"]["moe"]["w_gate"].shape[1]
+    att = []
+    dist.set_mesh(mesh)
+    try:
+        srv = LMServer(params, cfg, batch, prompt + steps, device=device)
+        fak.reset_launches()
+        dist.reset_counts()
+        t0 = time.perf_counter()
+        errs, toks = _serve_lockstep(srv, prompts, ref, steps)
+        sync(device)
+        out = {"errs": errs, "s": time.perf_counter() - t0,
+               "sent": dict(dist.counts), "block_experts": experts,
+               "flash": dict(fak.launches)}
+        # every attention call held to its plain version, in a second,
+        # untimed pass over the same prompts and tokens: both sides of
+        # the logit comparison run the same kernels
+        with attention_held(att):
+            _serve_lockstep(srv, prompts, ref, steps)
+    finally:
+        dist.set_mesh(None)
+    out["attention"] = _held_summary(att)
+    if experts != cfg.moe.n_experts // model:
+        raise PhaseError(f"7a serve rank {rank}: holds {experts} experts")
+    want = {"flash_tc" if cfg.dtype == "bfloat16" else "flash_simt": layers,
+            "flash_decode": layers * steps}
+    if device != "cpu" and {k: out["flash"][k] for k in want} != want:
+        raise PhaseError(f"7a serve rank {rank}: flash launches "
+                         f"{out['flash']}, expected {want}")
+    _check_held(f"7a serve rank {rank}", att, sum(want.values()))
+    if not torch.equal(toks, ref["tokens"]) or not max(errs) < A2A_TOL:
+        raise PhaseError(f"7a serve rank {rank}: tokens or logits differ "
+                         f"from the single-card server: logit errors "
+                         f"{errs} (tolerance {A2A_TOL}), tokens "
+                         f"{toks.tolist()} vs {ref['tokens'].tolist()}")
+    return out
+
+
+def _rank_7b(rank, world, seed, ref_dir, device, layers, batch, prompt,
+             steps, max_len, model, f32_layers, f32_steps, reduced=False):
+    """Split-K decode of gemma3-1b behind LMServer on a (model) mesh, this
+    rank holding its sequence block of the cache, in lockstep with the
+    single-card server's tokens (gather decode on flash_decode): bf16 at
+    ``layers`` and fp32 at ``f32_layers``; the counted bytes per layer
+    and step are the partials'."""
+    from repro_torch import dist
+    from repro_torch.models import transformer
+    from repro_torch.runtime import LMServer
+    mesh = dist.make_mesh((model,), ("model",))
+    out = {}
+    for label, n, dt, st, tol in (("bf16", layers, "bfloat16", steps,
+                                   LM_LOGIT_TOL),
+                                  ("fp32", f32_layers, "float32", f32_steps,
+                                   SPLITK_F32_TOL)):
+        cfg = _serve_cfgs("gemma3-1b", n, reduced, dtype=dt,
+                          decode_attn="splitk")
+        ref = torch.load(os.path.join(ref_dir, f"7b_{label}.pt"))
+        params = transformer.init_params(cfg, seed=seed, device=device)
+        att = []
+        dist.set_mesh(mesh)
+        try:
+            srv = LMServer(params, cfg, batch, max_len, device=device)
+            fak.reset_launches()
+            dist.reset_counts()
+            t0 = time.perf_counter()
+            errs, _ = _serve_lockstep(srv, ref["prompts"].numpy(), ref, st)
+            sync(device)
+            serve_s = time.perf_counter() - t0
+            block = tuple(srv.cache["k"].shape)
+            sent, launches = dict(dist.counts), dict(fak.launches)
+            # the prefill's attention calls held to their plain version
+            # in a second, untimed prefill (split-K decode attends in
+            # plain torch; the launch check below says it calls no kernel)
+            with attention_held(att):
+                srv.prefill(ref["prompts"].numpy())
+        finally:
+            dist.set_mesh(None)
+        h, dh = cfg.n_heads, cfg.d_head
+        per = st * n        # layer calls of the decode steps
+        want = {"pmax@model": {"calls": per, "bytes": per * batch * h * 4},
+                "psum@model": {"calls": 2 * per,
+                               "bytes": per * batch * h * (dh + 1) * 4}}
+        cache_block = (block[1] * block[2] * block[3] * block[4]
+                       * (2 if dt == "bfloat16" else 4))
+        out[label] = {"errs": errs, "s": serve_s, "sent": sent,
+                      "block": block,
+                      "bytes_per_layer_step": batch * h * (dh + 2) * 4,
+                      "cache_block_bytes": cache_block,
+                      "flash": launches, "attention": _held_summary(att)}
+        if block[2] != max_len // model:
+            raise PhaseError(f"7b rank {rank}: cache block {block}")
+        # prefill on the kernel; split-K decode attends in plain torch
+        flash = {"flash_decode": 0, "flash_simt" if dt == "float32"
+                 else "flash_tc": n}
+        if device != "cpu" and {k: launches[k] for k in flash} != flash:
+            raise PhaseError(f"7b rank {rank} ({label}): flash launches "
+                             f"{launches}, expected {flash}")
+        _check_held(f"7b rank {rank} ({label})", att, n)
+        if sent != want:
+            raise PhaseError(f"7b rank {rank} ({label}): sent {sent}, "
+                             f"expected the partials only: {want}")
+        if not max(errs) <= tol:
+            raise PhaseError(f"7b rank {rank} ({label}): split-K logits != "
+                             f"the single-card server's: {errs} (tolerance "
+                             f"{tol})")
+        del srv, params
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _rank_7d(rank, world, seed, ref_dir, device, arch, batch, seq, skew,
+             reduced=False, **_):
+    """A world of one (NCCL on the card): 7a's a2a path and 7c's syncs on
+    (1, 1) meshes equal the single-device results exactly."""
+    from repro_torch import dist
+    from repro_torch.dist.collectives import cross_pod_allreduce, grad_sync
+    from repro_torch.models import moe
+    cfg = _arch_cfg(arch, reduced)
+    m = cfg.moe
+    p = moe_layer(seed, cfg, range(m.n_experts), device)
+    x = moe_tokens(seed, cfg, batch, seq, skew, device)
+    c = dataclasses.replace(m, capacity_factor=1.25)
+    y_single, aux_single = moe.moe_block(p, x, c)
+    mesh = dist.make_mesh((1, 1), ("data", "model"))
+    dist.set_mesh(mesh)
+    try:
+        dist.reset_counts()
+        y, aux = moe.moe_block(p, x, dataclasses.replace(c, moe_impl="a2a"))
+        sync(device)
+    finally:
+        dist.set_mesh(None)
+    out = {"backend": mesh.backend, "sent": dict(dist.counts)}
+    if not (torch.equal(y, y_single) and torch.equal(aux, aux_single)):
+        raise PhaseError(f"7d: the a2a path on a (1, 1) {mesh.backend} mesh "
+                         f"differs from the single-device scatter path: "
+                         f"{float((y.float() - y_single.float()).abs().max())}")
+    pod = dist.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    g = {"w": x[0].float()}
+    for mm in (mesh, pod):
+        if not (torch.equal(grad_sync(mm, g)["w"], g["w"])
+                and torch.equal(cross_pod_allreduce(mm, g["w"], compress=True),
+                                g["w"])):
+            raise PhaseError("7d: grad_sync / cross_pod_allreduce on a "
+                             "world of one is not the identity")
+    return out
+
+
+DIST_SUBPHASES = {"7a": _rank_7a, "7a_serve": _rank_7a_serve, "7b": _rank_7b,
+                  "7c": _rank_7c, "7d": _rank_7d}
+
+
+def dist_ranks(rank, world, seed, plan, ref_dir, devices):
+    """One rank of a phase 7 spawn: the sub-phases of ``plan`` in turn on
+    ``devices[rank]``, each printing its backend, world size, device,
+    seconds and counted collective bytes."""
+    import torch.distributed as tdist
+    device = devices[rank]
+    if device != "cpu":
+        torch.cuda.set_device(device)
+    out = {}
+    for name, kw in plan:
+        t0 = time.perf_counter()
+        res = DIST_SUBPHASES[name](rank, world, seed, ref_dir, device, **kw)
+        sync(device)
+        res["rank_s"] = time.perf_counter() - t0
+        sent = {}
+        for v in [res] + [v for v in res.values() if isinstance(v, dict)]:
+            for op, c in v.get("sent", {}).items():
+                sent[op] = sent.get(op, 0) + c["bytes"]
+        print(f"{name} rank {rank}/{world}: {tdist.get_backend()}, world "
+              f"{world}, {device}, {res['rank_s']:.2f} s, collective bytes "
+              f"sent {json.dumps(sent)}", flush=True)
+        if rank == 0:
+            print(f"{name} rank 0: {json.dumps(_brief(res))}", flush=True)
+        out[name] = res
+    return out
+
+
+def _brief(res):
+    """``res`` for one printed line: floats to 4 significant digits,
+    lists of floats to their max."""
+    if isinstance(res, dict):
+        return {k: _brief(v) for k, v in res.items()}
+    if isinstance(res, (list, tuple)) and res and all(
+            isinstance(v, float) for v in res):
+        return {"max": float(f"{max(res):.4g}"), "n": len(res)}
+    if isinstance(res, float):
+        return float(f"{res:.4g}")
+    if isinstance(res, (list, tuple)):
+        return [_brief(v) for v in res]
+    return res
+
+
+def phase_dist(seed: int, sizes: dict, device: str = "cuda") -> dict:
+    """7: the distribution slice (``dist/`` on ``torch.distributed``),
+    one spawned process per rank.  The single-card references run here
+    first (the scatter MoE, the gather-decode servers) and go to the
+    ranks through files; then 8 gloo ranks sharing the card run 7a's
+    expert-parallel MoE on (data 2, model 4) and 7c's gradient sync on
+    (pod 2, data 2, model 2), 4 run 7a's MoE server and 7b's split-K
+    decode on (model 4), and one NCCL rank runs 7d.  With two cards or
+    more, 7a also runs on NCCL across distinct cards.  ``device="cpu"``
+    with ``DIST_SIZES["rehearsal"]`` rehearses it on gloo (7d too)."""
+    from repro_torch.launch.mesh import run_local
+    from repro_torch.models import moe
+    from repro_torch.models import transformer
+    res = {}
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.empty_cache()        # the earlier phases' cached blocks
+    with tempfile.TemporaryDirectory() as ref_dir:
+        # 7a: the single-card scatter path over every expert
+        kw = sizes["7a"]
+        cfg = _arch_cfg(kw["arch"], kw.get("reduced", False))
+        m = cfg.moe
+        p = moe_layer(seed, cfg, range(m.n_experts), device)
+        x = moe_tokens(seed, cfg, kw["batch"], kw["seq"], kw["skew"], device)
+        t = kw["batch"] * kw["seq"]
+        loads = _loads(p, x, m)
+        avg = t * m.top_k / m.n_experts
+        ample = max(1.25, math.ceil(4 * int(loads.max()) / avg) / 4)
+        refs = {"ample_cf": ample}
+        for label, cf in (("ample", ample), ("overflow", 1.25)):
+            y, _ = moe.moe_block(p, x, dataclasses.replace(
+                m, capacity_factor=cf))
+            refs[label] = y.cpu()
+        cap = moe.capacity(t, dataclasses.replace(m, capacity_factor=1.25))
+        dropped = int((loads - cap).clamp(min=0).sum())
+        w_bytes = sum(p[k].numel() * p[k].element_size()
+                      for k in ("w_gate", "w_up", "w_down"))
+        torch.save(refs, os.path.join(ref_dir, "7a.pt"))
+        print(f"7a: {cfg.name} one MoE layer: {m.n_experts} experts "
+              f"top-{m.top_k}, d {cfg.d_model}, d_expert {m.d_expert}, "
+              f"{cfg.dtype}, {w_bytes / 1e9:.3f} GB of experts; tokens "
+              f"{kw['batch']} x {kw['seq']} (N(0, 1) + {kw['skew']} x one "
+              f"shared vector); mesh (data, model) {kw['mesh']} on "
+              f"{math.prod(kw['mesh'])} gloo ranks sharing {device}; "
+              f"loads per expert max {int(loads.max())} / mean {avg:.1f}: "
+              f"ample capacity factor {ample}, at 1.25 (capacity {cap}) "
+              f"{dropped} of {t * m.top_k} pairs dropped; "
+              + _cuts(kw, f"one MoE layer of {cfg.n_layers}"), flush=True)
+        if not dropped:
+            raise PhaseError("7a: no pair overflows at capacity factor 1.25")
+        del p, x, y
+        # 7a serve: the single-card scatter server
+        kw = sizes["7a_serve"]
+        cfg = _serve_cfgs(kw["arch"], kw["layers"], kw.get("reduced", False))
+        params = transformer.init_params(cfg, seed=seed, device=device)
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab, (kw["batch"], kw["prompt"]))
+        ref = reference_server(cfg, params, prompts, kw["steps"],
+                               kw["prompt"] + kw["steps"], device)
+        torch.save(dict(ref, prompts=torch.from_numpy(prompts)),
+                   os.path.join(ref_dir, "7a_serve.pt"))
+        print(f"7a serve: {cfg.name} d {cfg.d_model}, {cfg.moe.n_experts} "
+              f"experts top-{cfg.moe.top_k}, {cfg.dtype}, moe_impl a2a on "
+              f"mesh (model {kw['model']}), LMServer {kw['batch']} x "
+              f"{kw['prompt']} prompts + {kw['steps']} greedy steps against "
+              f"the single-card scatter server (tolerance {A2A_TOL}; a "
+              f"decode step's {kw['batch']} tokens must divide over the "
+              f"ranks), every attention call held to its plain version; "
+              + _cuts(kw, f"depth {get_arch(kw['arch']).config.n_layers} -> "
+                      f"{kw['layers']}"), flush=True)
+        del params
+        # 7b: the single-card gather-decode servers, bf16 and fp32
+        kw = sizes["7b"]
+        prompts = np.random.default_rng(seed + 2).integers(
+            0, 2 ** 31, (kw["batch"], kw["prompt"]))
+        for label, n, dt, st in (("bf16", kw["layers"], "bfloat16",
+                                  kw["steps"]),
+                                 ("fp32", kw["f32_layers"], "float32",
+                                  kw["f32_steps"])):
+            cfg = _serve_cfgs("gemma3-1b", n, kw.get("reduced", False),
+                              dtype=dt, decode_attn="splitk")
+            params = transformer.init_params(cfg, seed=seed, device=device)
+            pr = prompts % cfg.vocab
+            ref = reference_server(cfg, params, pr, st, kw["max_len"],
+                                   device)
+            torch.save(dict(ref, prompts=torch.from_numpy(pr)),
+                       os.path.join(ref_dir, f"7b_{label}.pt"))
+            del params
+        print(f"7b: gemma3-1b split-K decode on mesh (model {kw['model']}): "
+              f"LMServer {kw['batch']} x {kw['prompt']} prompts then "
+              f"{kw['steps']} greedy steps at max_len {kw['max_len']} "
+              f"({kw['max_len'] // kw['model']} positions per rank), "
+              f"{kw['layers']} layers bf16 (tolerance {LM_LOGIT_TOL}) and "
+              f"{kw['f32_layers']} layers fp32 over {kw['f32_steps']} steps "
+              f"(tolerance {SPLITK_F32_TOL}), in lockstep with the "
+              f"single-card server (gather decode), every prefill "
+              f"attention call held to its plain version; "
+              + _cuts(kw, f"fp32 pass depth 26 -> {kw['f32_layers']}"),
+              flush=True)
+        if on_card:
+            torch.cuda.empty_cache()
+        kw = sizes["7c"]
+        print(f"7c: grad_sync and cross_pod_allreduce over {kw['arch']}'s "
+              f"parameter tree (a different one per rank) on mesh (pod, "
+              f"data, model) {kw['mesh']}, plain and int8 across pods; "
+              + _cuts(kw, "none"), flush=True)
+        shared = ["cuda:0" if on_card else "cpu"]
+        for world, plan in ((8, [("7a", sizes["7a"]), ("7c", sizes["7c"])]),
+                            (4, [("7a_serve", sizes["7a_serve"]),
+                                 ("7b", sizes["7b"])])):
+            t0 = time.perf_counter()
+            ranks = run_local(dist_ranks, world, "gloo",
+                              args=(seed, plan, ref_dir, shared * world))
+            for name, _ in plan:
+                res[name] = [r[name] for r in ranks]
+            print(f"7 spawn of {world} gloo ranks ({[n for n, _ in plan]}): "
+                  f"{time.perf_counter() - t0:.2f} s host wall clock",
+                  flush=True)
+        # 7d: a world of one; NCCL on the card
+        kw = dict(sizes["7a"], mesh=(1, 1))
+        backend = "nccl" if on_card else "gloo"
+        print(f"7d: a world of one on {backend}: 7a's a2a path and 7c's "
+              f"syncs on (1, 1) meshes equal the single-device results "
+              f"exactly; {_cuts(kw, 'as 7a')}", flush=True)
+        res["7d"] = run_local(dist_ranks, 1, backend,
+                              args=(seed, [("7d", kw)], ref_dir,
+                                    shared))[0]["7d"]
+        n_cards = torch.cuda.device_count() if on_card else 0
+        if n_cards >= 2:
+            world = 1 << (min(n_cards, 8).bit_length() - 1)
+            kw = dict(sizes["7a"], mesh=(world // min(world, 4),
+                                         min(world, 4)))
+            res["7a_nccl"] = [r["7a"] for r in run_local(
+                dist_ranks, world, "nccl",
+                args=(seed, [("7a", kw)], ref_dir,
+                      [f"cuda:{r}" for r in range(world)]))]
+            print(f"7a on NCCL across {world} cards, mesh {kw['mesh']}: ran",
+                  flush=True)
+        else:
+            print(f"7a on NCCL across cards: not run ({n_cards} card(s))",
+                  flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3336,6 +4026,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-sizes", choices=sorted(TRAIN_SIZES),
                     default="full", help="sizes of the training phases "
                     "6a-6d (TRAIN_SIZES)")
+    ap.add_argument("--dist-sizes", choices=sorted(DIST_SIZES),
+                    default="full", help="sizes of the distribution phase "
+                    "7a-7d (DIST_SIZES)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3443,6 +4136,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_train_entry_points()
     print(f"6e phase: {time.perf_counter() - t0:.2f} s host wall clock",
+          flush=True)
+
+    # the distribution slice, in spawned ranks (their kernels count there)
+    t0 = time.perf_counter()
+    phase_dist(args.seed, DIST_SIZES[args.dist_sizes])
+    print(f"7 phase: {time.perf_counter() - t0:.2f} s host wall clock",
           flush=True)
 
     rows = []

@@ -1,0 +1,80 @@
+"""Mesh factories and a local launcher for ranks on one host.
+
+A mesh needs the process group up first (one process per rank:
+``torch.distributed.init_process_group`` with an address, the world size
+and the rank, as ``torchrun`` or :func:`run_local` gives them).  Single
+pod: (data=16, model=16) = 256 ranks.  Multi-pod: (pod=2, data=16,
+model=16) = 512 ranks; the 'pod' axis is pure data parallelism whose
+gradient all-reduce crosses the slow link once per step.  (The
+reference's ``make_columns_mesh`` has no counterpart: on one card the
+column plane is one tensor.)
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import os
+import tempfile
+
+import torch
+
+from repro_torch import dist
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    import torch.distributed as tdist
+    world = tdist.get_world_size() if tdist.is_initialized() else 0
+    if world != n:
+        raise RuntimeError(
+            f"mesh {shape} needs a world of {n} ranks but the process "
+            f"group has {world} — launch {n} processes (one per rank), or "
+            f"for a dry run in one process init the 'fake' backend with "
+            f"world_size={n}")
+    return dist.make_mesh(shape, axes)
+
+
+def make_smoke_mesh(shape=(1, 1), axes=("data", "model")):
+    """1-rank mesh for smoke tests of the sharded step functions (the
+    process group must have one rank)."""
+    return dist.make_mesh(shape, axes)
+
+
+def _rank_main(rank, fn, world, backend, out_dir, timeout_s):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
+    import torch.distributed as tdist
+    tdist.init_process_group(
+        backend, init_method="file://" + os.path.join(out_dir, "store"),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        result = fn(rank, world, *args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.set_mesh(None)
+        tdist.destroy_process_group()
+
+
+def run_local(fn, world: int, backend: str, args=(), timeout_s=600):
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes on
+    this host, each with an initialised process group of ``backend``
+    (rendezvous through a file in a fresh temporary directory, so no
+    port is shared with other launches on the host), and return the
+    ranks' results in rank order.  ``fn`` must be importable by its module path.  If a
+    rank fails, the others are stopped and the error is raised here;
+    a collective waits at most ``timeout_s``.  ``args`` go to the ranks
+    through a file: a spawned child reads its pipe only after importing
+    the main module, so large arguments on the pipe would start the
+    ranks one after another."""
+    import torch.multiprocessing as tmp
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.save(tuple(args), os.path.join(out_dir, "args.pt"))
+        tmp.start_processes(
+            _rank_main, args=(fn, world, backend, out_dir, timeout_s),
+            nprocs=world, join=True, start_method="spawn")
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]

@@ -24,15 +24,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import dist
+
 from . import mp
 from .layers import attach_tree
 
 
+def _node_spec(mesh):
+    return dist.P(tuple(mesh.axis_names), None)
+
+
+def _vec_spec(mesh):
+    return dist.P(tuple(mesh.axis_names))
+
+
+def _edge_heads_spec(mesh):
+    return dist.P(tuple(mesh.axis_names), None, None)
+
+
 def _c(cfg, x, is_node: bool = False):
-    """The reference's hook for mesh sharding constraints on node/edge
-    activations (``GNNConfig.constrain_acts``).  A no-op here: the port
-    runs on one card, and sharding comes with the distribution slice."""
-    return x
+    """Optionally constrain a node/edge-major activation
+    (``GNNConfig.constrain_acts``), through ``dist.constrain``."""
+    mode = cfg.constrain_acts
+    if not mode or (mode == "nodes" and not is_node):
+        return x
+    if x.ndim == 1:
+        return dist.constrain(x, _vec_spec)
+    return dist.constrain(x, _node_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +76,8 @@ class GNNConfig:
     cutoff: float = 5.0
     n_species: int = 32
     task: str = "node"              # node | graph | energy
-    # sharding constraints on activations: kept for config parity, read
-    # by nothing on one card (see _c)
+    # sharding constraints on activations ("" | "nodes" | "all"), through
+    # dist.constrain (see _c)
     constrain_acts: str = ""
     dtype: str = "float32"
 
@@ -211,7 +229,11 @@ def gat_forward(p, batch: dict, cfg: GNNConfig) -> torch.Tensor:
                               negative_slope=0.2)            # (E, H)
         alpha = mp.segment_softmax(logits, dst, n)           # per head
         msgs = h[src] * alpha[:, :, None]
-        out = _c(cfg, mp.scatter_sum(msgs, dst, n))          # (N, H, O)
+        if cfg.constrain_acts == "all":
+            msgs = dist.constrain(msgs, _edge_heads_spec)
+        out = mp.scatter_sum(msgs, dst, n)                   # (N, H, O)
+        if cfg.constrain_acts:
+            out = dist.constrain(out, _edge_heads_spec)
         x = out.mean(dim=1) if last else F.elu(out.reshape(n, -1))
     if cfg.task == "graph":
         num = mp.scatter_sum(x, batch["graph_ids"], batch["n_graphs"])

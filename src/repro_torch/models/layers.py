@@ -6,8 +6,8 @@ pytrees, carried across by ``transformer.params_from_jax``);
 :class:`ParamTree` holds such a tree as one ``nn.Module`` for the
 optimizer and the trainer.  The
 reference's ``jax.lax.scan`` over stacked layers becomes a Python loop in
-``transformer``; ``dist.constrain`` sharding hints are the identity on
-one card and are dropped.
+``transformer``; ``dist.constrain`` sharding hints keep activations
+whole (the identity) and are dropped here.
 """
 
 from __future__ import annotations

@@ -10,9 +10,16 @@ holds one as a module for the optimizer); ``jax.lax.scan`` over layers
 becomes a Python loop and ``jax.checkpoint`` (``remat="layer"``, and
 each vocab chunk of ``chunked_ce``) becomes
 ``torch.utils.checkpoint`` without reentry, applied while autograd
-records.  ``dist.constrain`` is the identity without a mesh and is
-dropped; ``decode_attn="splitk"`` needs a mesh, so decode takes
-``_decode_attn`` as the reference does without one.
+records.  ``dist.constrain`` keeps activations whole (the identity,
+with or without a mesh) and is dropped.  Under a mesh with a ``"model"``
+axis, ``decode_attn="splitk"`` holds the KV cache as each rank's block
+of the sequence (``init_cache`` and ``prefill`` leave it so, the cache
+dict carrying its spec under ``"spec"``) and decode takes
+``_decode_attn_splitk`` (flash-decoding: per-rank partials combined by a
+``pmax`` and two ``psum`` over ``"model"``); otherwise decode takes
+``_decode_attn``, as the reference does.  MoE layers with
+``moe_impl="a2a"`` under such a mesh hold their rank's block of the
+experts (:func:`local_params`).
 
 Attention goes through the flash_attention kernel (``kernels/
 flash_attention``: CUDA tensors launch it, CPU tensors take its plain
@@ -34,19 +41,20 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import dist
 from repro_torch.core.analytics import check_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 from .layers import (NEG_INF, AttnConfig, _repeat_kv, attn_qkv, embed,
                      init_attn, init_embedding, init_mlp, mlp_block,
                      params_from_jax, rms_norm, unembed, write_cache)
-from .moe import MoEConfig, init_moe, moe_block
+from .moe import MoEConfig, expert_block, init_moe, moe_block
 
 Param = dict
 
 __all__ = ["LMConfig", "chunked_ce", "decode_step", "forward",
            "forward_features", "init_cache", "init_params", "lm_loss",
-           "params_from_jax", "prefill", "set_use_kernel"]
+           "local_params", "params_from_jax", "prefill", "set_use_kernel"]
 
 _USE_KERNEL = True
 
@@ -81,7 +89,7 @@ class LMConfig:
     aux_loss_weight: float = 0.01
     remat: str = "layer"               # layer | none (activation ckpt)
     loss_chunks: int = 16              # vocab chunks for fused CE (0=full)
-    decode_attn: str = "gather"        # "splitk" needs a mesh (a later slice)
+    decode_attn: str = "gather"        # "splitk": sequence-sharded cache
     dtype: str = "bfloat16"
 
     @property
@@ -235,8 +243,8 @@ def _embed(params: Param, tokens: torch.Tensor, cfg: LMConfig):
 
 def _layers(params: Param, cfg: LMConfig, x, positions, kv_out=None):
     """Every layer over a whole prompt -> (x, summed MoE aux); with
-    ``kv_out`` = (k_cache, v_cache), each layer's K/V also go into its
-    cache slots [0, S).  While autograd records, ``remat="layer"``
+    ``kv_out``, ``kv_out(i, k, v)`` takes each layer's K/V (B, S, kv,
+    dh).  While autograd records, ``remat="layer"``
     recomputes each layer in the backward pass."""
     s = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -248,8 +256,7 @@ def _layers(params: Param, cfg: LMConfig, x, positions, kv_out=None):
             if remat else _layer_fwd(*args)
         aux = aux + a
         if kv_out is not None:
-            kv_out[0][i, :, :s] = k
-            kv_out[1][i, :, :s] = v
+            kv_out(i, k, v)
     return x, aux
 
 
@@ -340,35 +347,83 @@ def lm_loss(params: Param, batch: dict, cfg: LMConfig):
 
 
 # ------------------------------------------------------------------- decode
+def local_params(params: Param, cfg: LMConfig, mesh) -> Param:
+    """The tree this rank holds under ``mesh``: ``params`` with each MoE
+    layer's expert weights cut to the rank's block when the layers take
+    the all-to-all (``moe_impl="a2a"`` and a ``"model"`` axis); the rest
+    is replicated and returned as it is."""
+    if not (cfg.moe and cfg.moe.moe_impl == "a2a" and mesh is not None
+            and "model" in mesh.axis_names):
+        return params
+    layers = dict(params["layers"],
+                  moe=expert_block(params["layers"]["moe"], mesh,
+                                   stacked=True))
+    return dict(params, layers=layers)
+
+
+def _cache_spec(cfg: LMConfig, batch: int, max_len: int):
+    """The spec of a cache held as blocks for split-K decode (layer,
+    batch over the dp axes when they divide it, sequence over
+    ``"model"``), or None when decode gathers: the reference's
+    condition for ``_decode_attn_splitk``, read when the cache is made."""
+    mesh = dist.get_mesh()
+    if not (cfg.decode_attn == "splitk" and mesh is not None
+            and "model" in mesh.axis_names
+            and max_len % mesh.shape["model"] == 0):
+        return None
+    dpx = dist.sharding.dp_axes(mesh)
+    bax = dpx if batch % max(dist.axis_size(mesh, dpx), 1) == 0 else None
+    return dist.Held(dist.P(None, bax, "model", None, None))
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
-    """KV cache dict: ``max_len`` slots for every layer."""
+    """KV cache dict: ``max_len`` slots for every layer (under split-K,
+    this rank's block of them, and ``"spec"``)."""
     check_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.d_head)
+    spec = _cache_spec(cfg, batch, max_len)
+    if spec is not None:
+        shape = dist.block_shape(shape, spec, dist.get_mesh())
     dt = cfg.tdtype
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if spec is not None:
+        cache["spec"] = spec
+    return cache
 
 
 @torch.no_grad()
 def prefill(params: Param, tokens: torch.Tensor, cfg: LMConfig,
             max_len: Optional[int] = None):
-    """Run the prompt, return last-position logits + populated cache."""
+    """Run the prompt, return last-position logits + populated cache.
+
+    Under split-K each rank keeps only its block of the cache (the
+    reference's ``constrain(kc, cache_spec)``): the slots of its
+    sequence block that the prompt fills."""
     b, s = tokens.shape
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt {s}")
     x = _embed(params, tokens, cfg)
-    shape = (cfg.n_layers, b, max_len, cfg.n_kv, cfg.d_head)
-    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    x, _ = _layers(params, cfg, x, _positions(b, s, x.device),
-                   kv_out=(ks, vs))
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    cache["len"].fill_(s)
+    spec = cache.get("spec")
+    # the block's [lo, hi) of the batch and of the sequence
+    (b0, b1), (p0, p1) = ((0, b), (0, max_len)) if spec is None else (
+        dist.block_range(n, spec[dim], dist.get_mesh())
+        for dim, n in ((1, b), (2, max_len)))
+    filled = max(0, min(p1, s) - p0)
+
+    def store(i, k, v):
+        if filled:
+            cache["k"][i, :, :filled] = k[b0:b1, p0:p0 + filled]
+            cache["v"][i, :, :filled] = v[b0:b1, p0:p0 + filled]
+
+    x, _ = _layers(params, cfg, x, _positions(b, s, x.device), kv_out=store)
     x = rms_norm(x, params["ln_f"])
     out_emb = params.get("unembed", params["embed"])
     logits = unembed(out_emb, x[:, -1:, :])
-    cache = {"k": ks, "v": vs,
-             "len": torch.full((b,), s, dtype=torch.int32, device=x.device)}
     return logits, cache
 
 
@@ -379,21 +434,33 @@ def decode_step(params: Param, cache: dict, tokens: torch.Tensor,
 
     The new token's K/V are written into ``cache["k"]``/``cache["v"]`` in
     place (the reference returns updated copies); the returned cache
-    shares those tensors and has ``len + 1``."""
+    shares those tensors and has ``len + 1``.  A cache held as split-K
+    blocks (``"spec"``) takes ``_decode_attn_splitk`` under the installed
+    mesh."""
     x = _embed(params, tokens, cfg)
     lens = cache["len"]
+    mesh = dist.get_mesh()
+    splitk = "spec" in cache
+    if splitk and mesh is None:
+        raise RuntimeError("this cache is held as split-K blocks of a mesh; "
+                           "install it with dist.set_mesh")
     for i, (lp, window) in enumerate(zip(_unstack(params["layers"]),
                                          cfg.layer_windows())):
         h = rms_norm(x, lp["ln_attn"])
-        o, _, _ = _decode_attn(lp["attn"], h, cfg, cache["k"][i],
-                               cache["v"][i], lens, int(window))
+        if splitk:
+            o, _, _ = _decode_attn_splitk(lp["attn"], h, cfg, cache["k"][i],
+                                          cache["v"][i], lens, int(window),
+                                          mesh)
+        else:
+            o, _, _ = _decode_attn(lp["attn"], h, cfg, cache["k"][i],
+                                   cache["v"][i], lens, int(window))
         x = x + o
         y, _ = _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"]))
         x = x + y
     x = rms_norm(x, params["ln_f"])
     out_emb = params.get("unembed", params["embed"])
     logits = unembed(out_emb, x)
-    return logits, {"k": cache["k"], "v": cache["v"], "len": lens + 1}
+    return logits, dict(cache, len=lens + 1)
 
 
 def _decode_attn(p, x, cfg: LMConfig, k_cache, v_cache, lens, window: int):
@@ -429,3 +496,73 @@ def _decode_attn(p, x, cfg: LMConfig, k_cache, v_cache, lens, window: int):
         o = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
     out = o.reshape(b, 1, -1) @ p["wo"]
     return out, k_cache, v_cache
+
+
+def _decode_attn_splitk(p, x, cfg: LMConfig, k_cache, v_cache, lens,
+                        window: int, mesh):
+    """Flash-decoding over a sequence-sharded KV cache.
+
+    Gathering the whole K/V cache per layer per token would move
+    O(S*kv*dh) bytes per layer.  Here each rank attends over its LOCAL
+    cache block (``k_cache``/``v_cache``: (B or B/dp, S/n_model, kv, dh))
+    with running (max, sumexp, acc) statistics, and the combine is a
+    ``pmax`` and two ``psum`` over (B, H) and (B, H, D): bytes per layer
+    drop to O(H*dh), B*H*(dh+2)*4 per step.  The new K/V row is written,
+    in place, only on the rank that owns position ``lens`` (no
+    cross-rank traffic); past a full cache no rank owns it and nothing
+    is written (the reference's behaviour: gather decode overwrites the
+    last slot instead).
+    """
+    b = x.shape[0]
+    positions = lens[:, None]
+    q, k_new, v_new = attn_qkv(p, x, cfg.attn, positions)   # (B,1,H,dh)...
+    n_rep = cfg.n_heads // cfg.n_kv
+    s_loc = k_cache.shape[1]
+    dpx = dist.sharding.dp_axes(mesh)
+    bax = dpx if b % max(dist.axis_size(mesh, dpx), 1) == 0 else None
+
+    def local(q, k_new, v_new, kc, vc, lens_):
+        shard = dist.axis_index("model")
+        base = shard * s_loc
+        idx = lens_ - base                       # (B,)
+        own = (idx >= 0) & (idx < s_loc)
+        iw = torch.clamp(idx, 0, s_loc - 1).long()
+        rows = torch.arange(kc.shape[0], device=kc.device)
+        for c, n in ((kc, k_new), (vc, v_new)):
+            # write exactly one row: select between the new KV row and
+            # the row already there (a whole-block `where` would rewrite
+            # the block every layer)
+            c[rows, iw] = torch.where(own[:, None, None], n[:, 0].to(c.dtype),
+                                      c[rows, iw])
+        k_pos = base + torch.arange(s_loc, dtype=torch.int32,
+                                    device=kc.device)    # (s_loc,)
+        mask = k_pos[None, :] <= lens_[:, None]           # (B, s_loc)
+        if window > 0:
+            mask = mask & (lens_[:, None] - k_pos[None, :] < window)
+        kk = _repeat_kv(kc, n_rep)
+        vv = _repeat_kv(vc, n_rep)
+        scale = 1.0 / np.sqrt(cfg.d_head)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) \
+            * scale
+        logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+        m_loc = torch.amax(logits, dim=-1)                  # (B,H,1)
+        m_glob = dist.pmax(m_loc, "model")
+        pexp = torch.exp(logits - m_glob[..., None])
+        l_loc = torch.sum(pexp, dim=-1)                     # (B,H,1)
+        acc = torch.einsum("bhqk,bkhd->bqhd", pexp.to(vv.dtype), vv)
+        l = dist.psum(l_loc, "model")
+        acc = dist.psum(acc.float(), "model")
+        o = (acc / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
+             ).to(x.dtype)
+        return o, kc, vc
+
+    cache_spec = dist.Held(dist.P(bax, "model", None, None))
+    small_spec = dist.P(bax, None, None, None)
+    o, nk, nv = dist.shard_map(
+        local, mesh=mesh,
+        in_specs=(small_spec, small_spec, small_spec, cache_spec,
+                  cache_spec, dist.P(bax)),
+        out_specs=(small_spec, cache_spec, cache_spec),
+    )(q, k_new, v_new, k_cache, v_cache, lens)
+    out = o.reshape(b, 1, -1) @ p["wo"]
+    return out, nk, nv

@@ -68,7 +68,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     n_modules = int(out.split("MODULES ")[1].split()[0])
-    assert n_modules >= 76, out
+    assert n_modules >= 79, out
     names = set(out.split("NAMES ")[1].split("\n")[0].split())
     assert {"repro_torch.runtime.server", "repro_torch.core.bsp",
             "repro_torch.core.twopl", "repro_torch.launch.serve",
@@ -79,7 +79,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.runtime.trainer", "repro_torch.launch.train",
             "repro_torch.examples.train_lm",
             "repro_torch.configs.moonshot_v1_16b_a3b",
-            "repro_torch.configs.qwen3_moe_235b_a22b"} <= names, out
+            "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.dist",
+            "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+            "repro_torch.launch.mesh"} <= names, out
     assert "LEAKED []" in out, out
     assert "False" not in out.split("LEAKED")[1], out
     assert out.count("NO_CUDA_RAISES") in (0, 4), out
