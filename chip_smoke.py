@@ -183,7 +183,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    also runs on NCCL across them.  ``DIST_SIZES[--dist-sizes]`` holds
    the sizes (``rehearsal``: reduced configs; with ``device="cpu"`` the
    phase runs on the CPU, 7d on gloo).
-8. One JSON line per the kernels table, the card's name and power limit,
+7e. Backward through the collectives, on the same spawns: 7a's layer
+   once more with a backward at both capacity factors (forward and
+   backward seconds and counted bytes side by side; x's and the router's
+   gradients and each expert's, through a seeded projection, against the
+   single-card scatter path's); moonshot-v1-16b-a3b at full width, depth
+   2, its MoE layers on the all-to-all on (model 4): ``lm_loss`` and
+   every gradient against the single-card scatter path, fp32 at 1 x 128
+   tokens and bf16 at 1 x 4,096, and the whole tree's gradient norm over
+   the held expert blocks; one ``Trainer`` step of the same LM in fp32 at
+   1 x 128 with its vocabulary cut to 32,768 (four ranks' AdamW state at
+   the full vocabulary does not fit one card) against the single-card
+   step: loss, grad norm, every first moment, each rank's update against
+   AdamW in fp64; ``sasrec.topk_catalog`` (the reference's
+   ``_rec_serve`` top-100) at SASRec's published config for 512 users on
+   (data 2, model 4) against dense ``score_catalog`` and a sort, its
+   encode's embedding_bag held against the plain twin.
+8. The dry run against the card: ``python -m repro_torch.launch.dryrun
+   --arch --shape --mesh both`` for one cell of each shape kind
+   (``DRYRUN_CELLS``), each in a subprocess, all at once (fake tensors,
+   host CPU only), every cell ok (the whole grid stays with the CLI);
+   cells shaped as 7a's layer and 7b's decode step count exactly the
+   bytes those phases counted; the fake-tensor FLOP count of phase 6b's
+   step equals ``FlopCounterMode`` over one real step on the card, whose
+   ms is printed beside the dry run's lower bound.
+9. One JSON line per the kernels table, the card's name and power limit,
    and last the result line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -3349,6 +3373,18 @@ GRAD_TOL = 1e-6        # plain grad_sync vs the fp64 mean: rtol = atol,
 GRAD_Q_TOL = 0.02      # int8 across pods: rtol = atol of the reference
 #                        test; each value is also held to half an int8
 #                        step of its tensor, max |x| / 254
+GRAD_BF16_TOL = 2e-2   # 7e's bf16 gradients, a2a against scatter: max
+#                        |diff| / the tensor's largest gradient.  The
+#                        forward is the same bit for bit (7a: err 0); the
+#                        backward sums each token's k slot gradients, and
+#                        each whole input's block gradients, in another
+#                        order, rounding each sum to bf16 (unit roundoff
+#                        2^-8 = 3.9e-3); a dropped or doubled slot reads
+#                        ~1/k = 0.17 of a token's gradient or more
+TOPK_RTOL = 1e-5       # 7e's distributed top-k values against dense
+#                        score_catalog + sort (the reference test's rtol):
+#                        each rank's block product and the dense one sum
+#                        the same 50 terms, perhaps in another order
 GRAD_STD = 0.35        # 7c's gradients: N(0, GRAD_STD^2), so the largest
 #                        of the table's 50M values (~2.0) lies in the
 #                        reference test's range (its values reach 2.3);
@@ -3368,6 +3404,11 @@ DIST_SIZES = {
         "7b": dict(layers=26, batch=8, prompt=1024, steps=32,
                    max_len=LM_SEQ, model=4, f32_layers=6, f32_steps=4),
         "7c": dict(arch="sasrec", mesh=(2, 2, 2)),
+        "7e": dict(arch="moonshot-v1-16b-a3b", layers=2, model=4,
+                   f32_tokens=128, bf16_tokens=4096),
+        "7e_step": dict(arch="moonshot-v1-16b-a3b", layers=2, model=4,
+                        tokens=128, vocab=32_768),
+        "7e_topk": dict(arch="sasrec", batch=512, mesh=(2, 4)),
     },
     "rehearsal": {
         "7a": dict(arch="qwen3-moe-235b-a22b", batch=4, seq=16,
@@ -3377,6 +3418,11 @@ DIST_SIZES = {
         "7b": dict(layers=2, batch=4, prompt=8, steps=8, max_len=16,
                    model=4, f32_layers=2, f32_steps=4, reduced=True),
         "7c": dict(arch="sasrec", mesh=(2, 2, 2), reduced=True),
+        "7e": dict(arch="moonshot-v1-16b-a3b", layers=2, model=4,
+                   f32_tokens=128, bf16_tokens=256, reduced=True),
+        "7e_step": dict(arch="moonshot-v1-16b-a3b", layers=2, model=4,
+                        tokens=128, vocab=None, reduced=True),
+        "7e_topk": dict(arch="sasrec", batch=8, mesh=(2, 4), reduced=True),
     },
 }
 
@@ -3428,6 +3474,111 @@ def _loads(p, x, m) -> torch.Tensor:
 def _cuts(kw: dict, depth: str) -> str:
     return ("cuts: reduced config (rehearsal)" if kw.get("reduced")
             else f"cuts: {depth}; width uncut")
+
+
+def moe_cotangent(seed: int, shape, device) -> torch.Tensor:
+    """The fixed fp32 cotangent of 7e's MoE-layer backward:
+    sum(y * cot) is the loss."""
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    return torch.randn(tuple(shape), generator=gen, device=device)
+
+
+def expert_prints(seed: int, grads: dict, device) -> dict:
+    """Each expert's gradient of each weight projected on one seeded
+    N(0, 1) direction of that weight's shape (float64 sums): (e,) per
+    weight, so a rank's block of experts is held against the whole
+    layer's without moving the whole gradients."""
+    out = {}
+    for i, name in enumerate(("w_gate", "w_up", "w_down")):
+        g = grads[name]
+        gen = torch.Generator(device=device).manual_seed(seed * 31 + i)
+        r = torch.randn(tuple(g.shape[1:]), generator=gen, device=device)
+        out[name] = torch.stack([torch.sum(g[e].double() * r.double())
+                                 for e in range(g.shape[0])])
+    return out
+
+
+def moe_grads(p: dict, x, cot, c) -> tuple:
+    """``moe_block``'s forward and backward of sum(y * cot) on ``p``
+    (the router and this rank's experts, or all of them): the gradients
+    of x, the router and the experts, with each pass's seconds and
+    counted collectives."""
+    from repro_torch import dist
+    from repro_torch.models import moe
+    leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+    xg = x.detach().requires_grad_()
+    dev = x.device
+    dist.reset_counts()
+    t0 = time.perf_counter()
+    y, _ = moe.moe_block(leaves, xg, c)
+    sync(dev)
+    t1 = time.perf_counter()
+    fwd = dict(dist.counts)
+    names = ("router", "w_gate", "w_up", "w_down")
+    got = torch.autograd.grad(torch.sum(y.float() * cot),
+                              [xg] + [leaves[k] for k in names])
+    sync(dev)
+    t2 = time.perf_counter()
+    bwd = {k: v for k, v in dist.counts.items() if ".bwd@" in k}
+    return dict(zip(("x",) + names, got)), {
+        "fwd_s": t1 - t0, "bwd_s": t2 - t1, "fwd_sent": fwd,
+        "bwd_sent": bwd}
+
+
+def grad_cfg(arch: str, layers: int, dtype: str, reduced: bool = False):
+    """7e's LM: ``arch`` at its width (or reduced), depth ``layers``,
+    ``dtype``, MoE layers on the all-to-all (the scatter path without a
+    mesh)."""
+    cfg = dataclasses.replace(_arch_cfg(arch, reduced), n_layers=layers,
+                              dtype=dtype)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, moe_impl="a2a"))
+
+
+def grad_batch(seed: int, cfg, tokens: int, device) -> dict:
+    b = next(synth.token_batches(np.random.default_rng(seed + 3), cfg.vocab,
+                                 1, tokens))
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in b.items()}
+
+
+def lm_grads(model, batch: dict, cfg) -> tuple:
+    """``lm_loss`` and every parameter's gradient (by name): what the
+    Trainer's step differentiates."""
+    from repro_torch.models import transformer
+    loss, _ = transformer.lm_loss(model.tree(), batch, cfg)
+    names = [k for k, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+STEP_OPT = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+
+
+def step_cfg(arch: str, layers: int, vocab, reduced: bool = False):
+    """7e's Trainer step: ``grad_cfg`` in fp32 with the vocabulary cut to
+    ``vocab`` (None: uncut)."""
+    cfg = grad_cfg(arch, layers, "float32", reduced)
+    return dataclasses.replace(cfg, vocab=vocab) if vocab else cfg
+
+
+def step_trainer(seed: int, cfg, tokens: int, device, ckpt_dir: str,
+                 mesh=None) -> tuple:
+    """A ``Trainer`` of ``cfg``'s LM (this rank's tree under ``mesh``;
+    checkpoints never written) and one batch of ``tokens`` tokens."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.runtime import Trainer, TrainerConfig
+    params = transformer.init_params(cfg, seed=seed, device=device)
+    model = ParamTree(transformer.local_params(params, cfg, mesh))
+    del params
+    tr = Trainer(lambda m, b: transformer.lm_loss(m.tree(), b, cfg), model,
+                 STEP_OPT, TrainerConfig(
+                     total_steps=10 ** 6, ckpt_every=10 ** 6,
+                     log_every=10 ** 6, ckpt_dir=ckpt_dir))
+    batch = next(synth.token_batches(np.random.default_rng(seed + 3),
+                                     cfg.vocab, 1, tokens))
+    return tr, batch
 
 
 def _rank_7a(rank, world, seed, ref_dir, device, arch, batch, seq, mesh,
@@ -3491,6 +3642,31 @@ def _rank_7a(rank, world, seed, ref_dir, device, arch, batch, seq, mesh,
         if not torch.equal(ys["exact"], ys["static"]):
             raise PhaseError(f"7a rank {rank}: the exact-sized dispatch "
                              f"(c_dev {exact}) differs from the static one")
+        del ys, logits, xf
+        # 7e: the layer's backward, against the single-card scatter path's
+        cot = moe_cotangent(seed, x.shape, device)
+        want = torch.load(os.path.join(ref_dir, "7e_moe.pt"),
+                          map_location=device)
+        for label, cf in (("ample", ref["ample_cf"]), ("overflow", 1.25)):
+            c = dataclasses.replace(m, capacity_factor=cf, moe_impl="a2a")
+            grads, info = moe_grads(p, x, cot, c)
+            prints = expert_prints(seed, grads, device)
+            w = want[label]
+            errs = {k: float((grads[k].float() - w[k].float()).abs().max()
+                             / w[k].float().abs().max())
+                    for k in ("x", "router")}
+            for k, v in prints.items():
+                errs[k] = float((v - w["prints"][k][lo:lo + e_loc]).abs()
+                                .max() / w["prints"][k].abs().max())
+            del grads
+            out[f"grad_{label}"] = dict(info, errs=errs)
+            if not max(errs.values()) <= GRAD_BF16_TOL:
+                raise PhaseError(f"7e rank {rank}: a2a gradients != the "
+                                 f"scatter path's at capacity factor {cf}: "
+                                 f"{errs} (tolerance {GRAD_BF16_TOL})")
+            if not info["bwd_sent"].get("all_to_all.bwd@model"):
+                raise PhaseError(f"7e rank {rank}: no all-to-all in the "
+                                 f"backward: {info['bwd_sent']}")
     finally:
         dist.set_mesh(None)
     return out
@@ -3799,8 +3975,201 @@ def _rank_7d(rank, world, seed, ref_dir, device, arch, batch, seq, skew,
     return out
 
 
+def _rank_7e(rank, world, seed, ref_dir, device, arch, layers, model,
+             f32_tokens, bf16_tokens, reduced=False):
+    """The gradients of ``lm_loss`` (what a Trainer step differentiates)
+    of ``arch`` at depth ``layers`` with its MoE layers on the all-to-all,
+    this rank holding its block of the experts on a (model) mesh, against
+    the single-card scatter path's: the loss, every tensor's gradient (an
+    expert block against the matching slice) and the whole tree's norm
+    (``adamw.global_norm`` over the held blocks), fp32 and bf16."""
+    from repro_torch import dist
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import ParamTree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = dist.make_mesh((model,), ("model",))
+    out = {}
+    for label, dt, tokens, tol in (("fp32", "float32", f32_tokens, A2A_TOL),
+                                   ("bf16", "bfloat16", bf16_tokens,
+                                    GRAD_BF16_TOL)):
+        cfg = grad_cfg(arch, layers, dt, reduced)
+        e_loc = cfg.moe.n_experts // model
+        lo = mesh.coord("model") * e_loc
+        params = transformer.init_params(cfg, seed=seed, device=device)
+        net = ParamTree(transformer.local_params(params, cfg, mesh))
+        del params
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        batch = grad_batch(seed, cfg, tokens, device)
+        dist.set_mesh(mesh)
+        try:
+            dist.reset_counts()
+            t0 = time.perf_counter()
+            loss, grads = lm_grads(net, batch, cfg)
+            sync(device)
+            secs = time.perf_counter() - t0
+            sent = dict(dist.counts)
+            gnorm = float(adamw.global_norm(grads))
+        finally:
+            dist.set_mesh(None)
+        ref = torch.load(os.path.join(ref_dir, f"7e_{label}.pt"),
+                         map_location="cpu", mmap=True)
+        errs = {}
+        for k, g in grads.items():
+            w = ref["grads"][k]
+            if k in mesh.held:
+                w = w[:, lo:lo + e_loc]
+            errs[k] = float((g.float() - w.to(device).float()).abs().max()
+                            / max(ref["scale"][k], 1e-30))
+        worst = max(errs, key=errs.get)
+        out[label] = {"loss_err": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                      "gnorm_err": abs(gnorm - ref["gnorm"]) / ref["gnorm"],
+                      "worst": (worst, errs[worst]), "s": secs,
+                      "sent": sent, "experts": e_loc}
+        del net, grads, ref
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        if not (out[label]["loss_err"] <= tol and out[label]["gnorm_err"]
+                <= tol and errs[worst] <= tol):
+            raise PhaseError(f"7e rank {rank} ({label}): a2a gradients != "
+                             f"the single-card scatter path's: "
+                             f"{_brief(out[label])} (tolerance {tol})")
+        if not sent.get("all_to_all.bwd@model"):
+            raise PhaseError(f"7e rank {rank}: no all-to-all in the "
+                             f"backward: {sent}")
+    return out
+
+
+def _rank_7e_step(rank, world, seed, ref_dir, device, arch, layers, model,
+                  tokens, vocab, reduced=False):
+    """One ``Trainer`` step of ``step_cfg``'s LM with its MoE layers on
+    the all-to-all, this rank holding its block of the experts on a
+    (model) mesh, against the single-card scatter path's step: the loss,
+    the clipped gradient's norm (the whole tree's, over the blocks in
+    ``mesh.held``), each tensor's first Adam moment (the clipped gradient
+    times 1 - b1; an expert block against the matching slice), and this
+    rank's change of its parameters against AdamW in fp64 from its own
+    moments (``update_errs``)."""
+    from repro_torch import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = dist.make_mesh((model,), ("model",))
+    cfg = step_cfg(arch, layers, vocab, reduced)
+    e_loc = cfg.moe.n_experts // model
+    lo = mesh.coord("model") * e_loc
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    tr, batch = step_trainer(seed, cfg, tokens, device,
+                             os.path.join(ref_dir, f"step{rank}"), mesh)
+    p0 = {k: v.detach().cpu().clone()
+          for k, v in tr.model.named_parameters()}
+    dist.set_mesh(mesh)
+    try:
+        dist.reset_counts()
+        t0 = time.perf_counter()
+        fit_step(tr, batch)
+        sync(device)
+        secs = time.perf_counter() - t0
+        sent = dict(dist.counts)
+    finally:
+        dist.set_mesh(None)
+    ref = torch.load(os.path.join(ref_dir, "7e_step.pt"), map_location="cpu",
+                     mmap=True)
+    errs = {}
+    for k, m in tr.opt_state.mu.items():
+        w = ref["mu"][k]
+        if k in mesh.held:
+            w = w[:, lo:lo + e_loc]
+        errs[k] = float((m - w.to(m.device)).abs().max()
+                        / max(float(w.abs().max()), 1e-30))
+    upd = update_errs(dict(tr.model.named_parameters()), tr.opt_state, p0,
+                      STEP_OPT)
+    worst, u_key = max(errs, key=errs.get), max(upd, key=upd.get)
+    loss, gnorm = tr.history[-1]["loss"], float(tr.last_metrics["grad_norm"])
+    out = {"loss_err": abs(loss - ref["loss"]) / abs(ref["loss"]),
+           "gnorm_err": abs(gnorm - ref["grad_norm"]) / ref["grad_norm"],
+           "moment": (worst, errs[worst]), "update": (u_key, upd[u_key]),
+           "held": sorted(mesh.held), "s": secs, "sent": sent,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if device != "cpu" else None)}
+    del tr, p0, ref
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    if not (out["loss_err"] <= A2A_TOL and out["gnorm_err"] <= A2A_TOL
+            and errs[worst] <= A2A_TOL and upd[u_key] <= GNN_STEP_TOL):
+        raise PhaseError(f"7e step rank {rank}: the Trainer step on the mesh "
+                         f"!= the single-card step: {_brief(out)} "
+                         f"(tolerances {A2A_TOL}; update {GNN_STEP_TOL})")
+    if not sent.get("all_to_all.bwd@model"):
+        raise PhaseError(f"7e step rank {rank}: no all-to-all in the "
+                         f"backward: {sent}")
+    return out
+
+
+def rec_histories(seed: int, cfg, batch: int) -> np.ndarray:
+    """``batch`` user histories, 20 % of them short and left-padded
+    (phase 5's)."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(1, cfg.n_items + 1, (batch, cfg.seq_len))
+    short = rng.random(batch) < 0.2
+    hist[short, :rng.integers(1, cfg.seq_len)] = 0
+    return hist
+
+
+def _rank_7e_topk(rank, world, seed, ref_dir, device, arch, batch, mesh,
+                  reduced=False):
+    """``_rec_serve``'s distributed top-100 (``sasrec.topk_catalog``) on
+    a (data, model) mesh: each rank scores its users' block against its
+    catalogue block; values against dense ``score_catalog`` + sort, and
+    indices wherever the values are not tied.  The encode launches
+    embedding_bag, held against its plain twin as phase 5 holds it."""
+    from repro_torch import dist
+    from repro_torch.models import sasrec
+    cfg = _arch_cfg(arch, reduced)
+    mesh = dist.make_mesh(mesh, ("data", "model"))
+    params = sasrec.init_params(cfg, seed=seed, device=device)
+    hist = torch.from_numpy(rec_histories(seed, cfg, batch)).to(device)
+    ref = torch.load(os.path.join(ref_dir, "7e_topk.pt"),
+                     map_location=device)
+    with torch.no_grad():
+        h_k = sasrec.encode(params, hist, cfg)
+        sasrec.set_use_kernel(False)
+        try:
+            h_p = sasrec.encode(params, hist, cfg)
+        finally:
+            sasrec.set_use_kernel(True)
+    enc_err = float((h_k - h_p).abs().max() / h_p.abs().max())
+    sasrec.topk_catalog(params, hist, cfg, mesh)            # warm
+    ebk.reset_launches()
+    dist.reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    v, idx = sasrec.topk_catalog(params, hist, cfg, mesh)
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ebk.launches["embedding_bag"]
+    # the reference keeps k + 1: a value tied with the first one left out
+    # may take the last place
+    want_v, want_i = ref["values"][:, :-1], ref["indices"][:, :-1]
+    rel = float(((v - want_v).abs() / want_v.abs().clamp(min=1e-30)).max())
+    tied = torch.isclose(want_v[:, :, None], ref["values"][:, None, :],
+                         rtol=TOPK_RTOL).sum(-1) > 1
+    idx_ok = bool(torch.equal(idx.long()[~tied], want_i[~tied]))
+    out = {"ms": ms, "rel_err": rel, "enc_err": enc_err,
+           "launches": launches, "tied": int(tied.sum()),
+           "sent": dict(dist.counts)}
+    if not (rel <= TOPK_RTOL and idx_ok and enc_err <= REC_SCORE_TOL):
+        raise PhaseError(f"7e top-k rank {rank}: values rel err {rel} "
+                         f"(rtol {TOPK_RTOL}), indices equal where untied: "
+                         f"{idx_ok}, encode kernel vs plain {enc_err}")
+    if device != "cpu" and launches != 1:
+        raise PhaseError(f"7e top-k rank {rank}: embedding_bag launched "
+                         f"{launches} times (1 expected: the encode)")
+    return out
+
+
 DIST_SUBPHASES = {"7a": _rank_7a, "7a_serve": _rank_7a_serve, "7b": _rank_7b,
-                  "7c": _rank_7c, "7d": _rank_7d}
+                  "7c": _rank_7c, "7d": _rank_7d, "7e": _rank_7e,
+                  "7e_step": _rank_7e_step, "7e_topk": _rank_7e_topk}
 
 
 def dist_ranks(rank, world, seed, plan, ref_dir, devices):
@@ -3828,6 +4197,10 @@ def dist_ranks(rank, world, seed, plan, ref_dir, devices):
             print(f"{name} rank 0: {json.dumps(_brief(res))}", flush=True)
         out[name] = res
     return out
+
+
+def _op_bytes(sent: dict, prefix: str) -> int:
+    return sum(c["bytes"] for k, c in sent.items() if k.startswith(prefix))
 
 
 def _brief(res):
@@ -3895,7 +4268,32 @@ def phase_dist(seed: int, sizes: dict, device: str = "cuda") -> dict:
               + _cuts(kw, f"one MoE layer of {cfg.n_layers}"), flush=True)
         if not dropped:
             raise PhaseError("7a: no pair overflows at capacity factor 1.25")
-        del p, x, y
+        del y
+        # 7e: the same layer's backward on the scatter path, every expert
+        cot = moe_cotangent(seed, x.shape, device)
+        back = {}
+        for label, cf in (("ample", ample), ("overflow", 1.25)):
+            grads, info = moe_grads(p, x, cot, dataclasses.replace(
+                m, capacity_factor=cf))
+            back[label] = {"x": grads["x"].cpu(),
+                           "router": grads["router"].cpu(),
+                           "prints": {k: v.cpu() for k, v in expert_prints(
+                               seed, grads, device).items()},
+                           "fwd_s": info["fwd_s"], "bwd_s": info["bwd_s"]}
+            del grads
+        torch.save(back, os.path.join(ref_dir, "7e_moe.pt"))
+        res["7e_single"] = {"moe_layer_s": {k: (v["fwd_s"], v["bwd_s"])
+                                            for k, v in back.items()}}
+        del p, x, cot, back
+        if on_card:
+            torch.cuda.empty_cache()
+        print(f"7e: 7a's layer once more with backward (sum(y * cot), a "
+              f"fixed N(0, 1) cot) at both capacity factors on the same 8 "
+              f"ranks, against the single-card scatter path's gradients: x "
+              f"and the router whole, each expert's gradients through a "
+              f"seeded projection (tolerance {GRAD_BF16_TOL}); single-card "
+              f"(fwd s, bwd s) {_brief(res['7e_single']['moe_layer_s'])}",
+              flush=True)
         # 7a serve: the single-card scatter server
         kw = sizes["7a_serve"]
         cfg = _serve_cfgs(kw["arch"], kw["layers"], kw.get("reduced", False))
@@ -3946,15 +4344,120 @@ def phase_dist(seed: int, sizes: dict, device: str = "cuda") -> dict:
               flush=True)
         if on_card:
             torch.cuda.empty_cache()
+        # 7e: the single-card scatter path's loss and gradients
+        kw = sizes["7e"]
+        from repro_torch.models.layers import ParamTree
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for label, dt, tokens in (("fp32", "float32", kw["f32_tokens"]),
+                                  ("bf16", "bfloat16", kw["bf16_tokens"])):
+            cfg = grad_cfg(kw["arch"], kw["layers"], dt,
+                           kw.get("reduced", False))
+            net = ParamTree(transformer.init_params(cfg, seed=seed,
+                                                    device=device))
+            t0 = time.perf_counter()
+            loss, grads = lm_grads(net, grad_batch(seed, cfg, tokens, device),
+                                   cfg)
+            sync(device)
+            secs = time.perf_counter() - t0
+            gnorm = float(adamw.global_norm(grads))
+            torch.save({"loss": loss, "gnorm": gnorm,
+                        "scale": {k: float(g.float().abs().max())
+                                  for k, g in grads.items()},
+                        "grads": {k: g.cpu() for k, g in grads.items()}},
+                       os.path.join(ref_dir, f"7e_{label}.pt"))
+            res["7e_single"][f"{label}_s"] = secs
+            del net, grads
+            if on_card:
+                torch.cuda.empty_cache()
+        print(f"7e: {cfg.name} at full width, depth {kw['layers']}, MoE "
+              f"layers on the all-to-all on mesh (model {kw['model']}), 4 "
+              f"gloo ranks each holding {cfg.moe.n_experts // kw['model']} "
+              f"experts: lm_loss and every gradient (what a Trainer step "
+              f"differentiates) against the single-card scatter path, fp32 "
+              f"at 1 x {kw['f32_tokens']} tokens (tolerance {A2A_TOL} of "
+              f"each tensor's largest gradient) and bf16 at 1 x "
+              f"{kw['bf16_tokens']} (tolerance {GRAD_BF16_TOL}); "
+              f"single-card s {res['7e_single']['fp32_s']:.3f} / "
+              f"{res['7e_single']['bf16_s']:.3f}; "
+              + _cuts(kw, f"depth {get_arch(kw['arch']).config.n_layers} -> "
+                      f"{kw['layers']}"), flush=True)
+        # 7e step: one single-card Trainer step on the scatter path
+        kw = sizes["7e_step"]
+        cfg = step_cfg(kw["arch"], kw["layers"], kw["vocab"],
+                       kw.get("reduced", False))
+        full = get_arch(kw["arch"]).config
+        tr, batch = step_trainer(seed, cfg, kw["tokens"], device,
+                                 os.path.join(ref_dir, "step_single"))
+        t0 = time.perf_counter()
+        fit_step(tr, batch)
+        sync(device)
+        secs = time.perf_counter() - t0
+        gnorm = float(tr.last_metrics["grad_norm"])
+        torch.save({"loss": tr.history[-1]["loss"], "grad_norm": gnorm,
+                    "mu": {k: v.cpu() for k, v in tr.opt_state.mu.items()}},
+                   os.path.join(ref_dir, "7e_step.pt"))
+        res["7e_single"]["step_s"] = secs
+        n_par = sum(p.numel() for p in tr.model.parameters())
+        del tr
+        if on_card:
+            torch.cuda.empty_cache()
+        print(f"7e step: one Trainer step (AdamW, clip_norm "
+              f"{STEP_OPT.clip_norm}, {cfg.dtype}) of {cfg.name} at depth "
+              f"{kw['layers']}, vocab {cfg.vocab} ({n_par:,} "
+              f"parameters), MoE layers on the all-to-all on mesh (model "
+              f"{kw['model']}), 4 gloo ranks, 1 x {kw['tokens']} tokens, "
+              f"against the single-card scatter path's step ({secs:.3f} s, "
+              f"grad norm {gnorm:.6g}): loss, grad norm and each tensor's "
+              f"first moment within {A2A_TOL} of the largest (experts "
+              f"against the matching slice), each rank's update against "
+              f"AdamW in fp64 within {GNN_STEP_TOL}; "
+              + ("cuts: reduced config (rehearsal)" if kw.get("reduced")
+                 else f"cuts: depth {full.n_layers} -> {kw['layers']}, vocab "
+                 f"{full.vocab} -> {cfg.vocab}, the only width cut (at the "
+                 f"full vocabulary each rank's fp32 step holds ~27 GB: 4 "
+                 f"ranks do not fit one card; 7e's gradients above are at "
+                 f"full width)"), flush=True)
+        if not gnorm > STEP_OPT.clip_norm:
+            raise PhaseError(f"7e step: grad norm {gnorm} does not exceed "
+                             f"clip_norm {STEP_OPT.clip_norm}: the clip "
+                             f"would not be checked")
+        # 7e: dense top-100 over the whole catalogue on the single card
+        kw = sizes["7e_topk"]
+        from repro_torch.models import sasrec
+        cfg = _arch_cfg(kw["arch"], kw.get("reduced", False))
+        params = sasrec.init_params(cfg, seed=seed, device=device)
+        hist = torch.from_numpy(rec_histories(seed, cfg, kw["batch"])
+                                ).to(device)
+        sasrec.set_use_kernel(False)
+        try:
+            scores = sasrec.score_catalog(params, hist, cfg)
+        finally:
+            sasrec.set_use_kernel(True)
+        vals, idx = moe.top_k(scores, 101)
+        torch.save({"values": vals.cpu(), "indices": idx.cpu()},
+                   os.path.join(ref_dir, "7e_topk.pt"))
+        del params, scores, vals, idx
+        print(f"7e top-k: {cfg.name}'s published config ("
+              f"{sasrec.table_rows(cfg)} x {cfg.d_embed} table), "
+              f"{kw['batch']} users (serve_p99) on mesh (data, model) "
+              f"{kw['mesh']}: sasrec.topk_catalog against dense "
+              f"score_catalog + a stable sort on the single card (values "
+              f"rtol {TOPK_RTOL}, indices where untied), the encode's "
+              f"embedding_bag held against its plain twin; "
+              + _cuts(kw, "none"), flush=True)
+        if on_card:
+            torch.cuda.empty_cache()
         kw = sizes["7c"]
         print(f"7c: grad_sync and cross_pod_allreduce over {kw['arch']}'s "
               f"parameter tree (a different one per rank) on mesh (pod, "
               f"data, model) {kw['mesh']}, plain and int8 across pods; "
               + _cuts(kw, "none"), flush=True)
         shared = ["cuda:0" if on_card else "cpu"]
-        for world, plan in ((8, [("7a", sizes["7a"]), ("7c", sizes["7c"])]),
+        for world, plan in ((8, [("7a", sizes["7a"]), ("7c", sizes["7c"]),
+                                 ("7e_topk", sizes["7e_topk"])]),
                             (4, [("7a_serve", sizes["7a_serve"]),
-                                 ("7b", sizes["7b"])])):
+                                 ("7b", sizes["7b"]), ("7e", sizes["7e"]),
+                                 ("7e_step", sizes["7e_step"])])):
             t0 = time.perf_counter()
             ranks = run_local(dist_ranks, world, "gloo",
                               args=(seed, plan, ref_dir, shared * world))
@@ -3963,6 +4466,39 @@ def phase_dist(seed: int, sizes: dict, device: str = "cuda") -> dict:
             print(f"7 spawn of {world} gloo ranks ({[n for n, _ in plan]}): "
                   f"{time.perf_counter() - t0:.2f} s host wall clock",
                   flush=True)
+        for label in ("ample", "overflow"):
+            g = res["7a"][0][f"grad_{label}"]
+            print(f"7e moe layer rank 0, {label}: forward {g['fwd_s']:.3f} s "
+                  f"(all-to-all {_op_bytes(g['fwd_sent'], 'all_to_all@')} "
+                  f"B, gathers {_op_bytes(g['fwd_sent'], 'all_gather@')} B),"
+                  f" backward {g['bwd_s']:.3f} s (all-to-all "
+                  f"{_op_bytes(g['bwd_sent'], 'all_to_all.bwd@')} B, "
+                  f"gathers {_op_bytes(g['bwd_sent'], 'all_gather.bwd@')} B,"
+                  f" psum {_op_bytes(g['bwd_sent'], 'psum.bwd@')} B); "
+                  f"worst error {max(g['errs'].values()):.3g}", flush=True)
+        for label in ("fp32", "bf16"):
+            r = [x[label] for x in res["7e"]]
+            worst = max((x["worst"] for x in r), key=lambda w: w[1])
+            print(f"7e {label}: loss err max "
+                  f"{max(x['loss_err'] for x in r):.3g}, grad norm err max "
+                  f"{max(x['gnorm_err'] for x in r):.3g}, worst tensor "
+                  f"{worst}, rank 0 {r[0]['s']:.3f} s for loss + "
+                  f"gradients, sent {json.dumps(r[0]['sent'])}", flush=True)
+        r = res["7e_step"]
+        print(f"7e step: loss err max {max(x['loss_err'] for x in r):.3g}, "
+              f"grad norm err max {max(x['gnorm_err'] for x in r):.3g}, "
+              f"worst moment {max((x['moment'] for x in r), key=lambda w: w[1])}"
+              f", worst update {max((x['update'] for x in r), key=lambda w: w[1])}"
+              f"; held {r[0]['held']}; rank 0 {r[0]['s']:.3f} s for the step"
+              f"; peak GiB per rank {[x['peak_gib'] for x in r]}; sent "
+              f"(rank 0) {json.dumps(r[0]['sent'])}", flush=True)
+        t = res["7e_topk"]
+        ms = [round(x["ms"], 3) for x in t]
+        print(f"7e top-k: ms per call per rank {ms}, values max rel err "
+              f"{max(x['rel_err'] for x in t):.3g}, tied places {t[0]['tied']}, encode kernel vs plain "
+              f"{max(x['enc_err'] for x in t):.3g}, embedding_bag launches "
+              f"per rank {[x['launches'] for x in t]}, sent (rank 0) "
+              f"{json.dumps(t[0]['sent'])}", flush=True)
         # 7d: a world of one; NCCL on the card
         kw = dict(sizes["7a"], mesh=(1, 1))
         backend = "nccl" if on_card else "gloo"
@@ -3987,6 +4523,180 @@ def phase_dist(seed: int, sizes: dict, device: str = "cuda") -> dict:
             print(f"7a on NCCL across cards: not run ({n_cards} card(s))",
                   flush=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the dry run (launch/dryrun on fake tensors) against the card
+# ---------------------------------------------------------------------------
+
+# One cell per shape kind (dense and MoE LMs, each GNN kind, the three
+# recsys kinds), each on both meshes: the whole grid (80 cells) takes
+# minutes of host CPU and stays with ``python -m repro_torch.launch.dryrun``
+DRYRUN_CELLS = {"lm_train": ("gemma3-1b", "train_4k"),
+                "lm_prefill": ("moonshot-v1-16b-a3b", "prefill_32k"),
+                "lm_decode": ("gemma3-1b", "long_500k"),
+                "gnn_full": ("pna", "ogb_products"),
+                "gnn_mini": ("dimenet", "minibatch_lg"),
+                "gnn_mol": ("gat-cora", "molecule"),
+                "rec_train": ("sasrec", "train_batch"),
+                "rec_serve": ("sasrec", "serve_bulk"),
+                "rec_retrieval": ("sasrec", "retrieval_cand")}
+DRYRUN_WAIT_S = 300     # phase 8's longest wait for its cells
+
+
+def dryrun_cells(outdir: str, device: str = "cuda") -> dict:
+    """8's cells: ``python -m repro_torch.launch.dryrun --arch A --shape S
+    --mesh both`` for each of ``DRYRUN_CELLS``, one subprocess each, all
+    started together (fake tensors: host CPU only).  ``DRYRUN_CELLS``
+    must name one non-skipped cell of each shape kind in the registry,
+    and every cell must end ok."""
+    from repro_torch.configs import ARCHS
+    kinds = {sh.kind for spec in ARCHS.values()
+             for sh in spec.shapes.values() if not sh.skip}
+    got = {k: ARCHS[a].shapes[s].kind for k, (a, s) in DRYRUN_CELLS.items()}
+    if set(DRYRUN_CELLS) != kinds or any(k != v for k, v in got.items()):
+        raise PhaseError(f"8: DRYRUN_CELLS {got} does not hold one cell of "
+                         f"each shape kind {sorted(kinds)}")
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs, rcs = {}, {}
+    try:
+        for kind, (arch, shape) in DRYRUN_CELLS.items():
+            with open(os.path.join(outdir, f"{kind}.log"), "w") as log:
+                procs[kind] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", "both",
+                     "--outdir", os.path.join(outdir, "cells"), "--device",
+                     device], stdout=log, stderr=subprocess.STDOUT,
+                    cwd=str(root), env=env)
+        for kind, proc in procs.items():
+            left = DRYRUN_WAIT_S - (time.perf_counter() - t0)
+            rcs[kind] = proc.wait(timeout=max(left, 1))
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"8: the dry-run cells did not end in "
+                         f"{DRYRUN_WAIT_S} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = {}
+    for kind, rc in rcs.items():
+        text = Path(outdir, f"{kind}.log").read_text()
+        ok = [ln for ln in text.splitlines() if ln.startswith("[ok]")]
+        if rc != 0 or len(ok) != 2 or "[FAIL]" in text:
+            raise PhaseError(f"8: the dry run of {DRYRUN_CELLS[kind]} failed "
+                             f"(exit {rc}): {text[-3000:]}")
+        secs.update({ln.split()[1].rstrip(":"): float(ln.split()[2][:-1])
+                     for ln in ok})
+    return {"ok": len(secs), "secs": secs,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_dryrun(seed: int, dist_res: dict, dist_sizes: dict, train_cfg,
+                 batch: int, seq: int, device: str = "cuda") -> dict:
+    """8: the dry run held against the card.  (1) One cell of each shape
+    kind (``dryrun_cells``) ends ok on both meshes (seconds per cell
+    printed).  (2) Cells shaped as phase 7a's
+    layer and 7b's split-K decode count exactly the collective bytes per
+    rank that those runs counted.  (3) The fake-tensor FLOP count of
+    phase 6b's step (``train_cfg`` at ``batch`` x ``seq``) equals
+    ``FlopCounterMode`` over one real step on the card; its measured ms
+    beside the dry run's lower bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, input_specs
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.optim import make_train_step
+    print(f"8 dry run: one cell per shape kind, {len(DRYRUN_CELLS)} kinds "
+          f"on both meshes (baseline, fake tensors on {device}), each "
+          f"through python -m repro_torch.launch.dryrun --arch --shape "
+          f"--mesh both in a subprocess of its own, all at once; the whole "
+          f"grid is left to the CLI (python -m repro_torch.launch.dryrun "
+          f"--mesh both: minutes of host CPU); then a 7a- and a 7b-shaped "
+          f"cell and 6b's step against the card", flush=True)
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as outdir:
+        g = dryrun_cells(outdir, device)
+    print(f"8 dry run: {g['ok']} cells ok, none failed, {g['wall_s']:.2f} s "
+          f"wall clock; s per cell {json.dumps(g['secs'])}", flush=True)
+    out = {"cells": g}
+    # (2) 7a's layer and 7b's decode step, counted on fake tensors
+    kw = dist_sizes["7a"]
+    cfg = _arch_cfg(kw["arch"], kw.get("reduced", False))
+    a = dryrun.count_on_mesh(
+        kw["mesh"], ("data", "model"),
+        lambda mesh: input_specs.moe_layer(cfg, kw["batch"], kw["seq"], mesh,
+                                           1.25, device))
+    measured = dist_res["7a"][0]["overflow"]["sent"]
+    print(f"8 7a-shaped cell: {json.dumps(a['collectives']['by_op'])}; "
+          f"phase 7a rank 0 counted {json.dumps(measured)}", flush=True)
+    if a["collectives"]["by_op"] != measured:
+        raise PhaseError(f"8: the 7a-shaped cell's bytes "
+                         f"{a['collectives']['by_op']} != phase 7a's "
+                         f"{measured}")
+    kw = dist_sizes["7b"]
+    cfg = _serve_cfgs("gemma3-1b", kw["layers"], kw.get("reduced", False),
+                      decode_attn="splitk")
+    b = dryrun.count_on_mesh(
+        (kw["model"],), ("model",),
+        lambda mesh: input_specs.build_cell(
+            "lm_decode", cfg, {"batch": kw["batch"], "seq": kw["max_len"]},
+            mesh, "decode_splitk", device))
+    per_layer = b["collectives"]["total_bytes"] / cfg.n_layers
+    r7b = dist_res["7b"][0]["bf16"]
+    measured = sum(c["bytes"] for c in r7b["sent"].values()) \
+        / (kw["steps"] * kw["layers"])
+    print(f"8 7b-shaped cell: {per_layer:.0f} B per layer and step "
+          f"({json.dumps(b['collectives']['by_op'])} over {cfg.n_layers} "
+          f"layers); phase 7b counted {measured:.0f} B", flush=True)
+    if not per_layer == measured == r7b["bytes_per_layer_step"]:
+        raise PhaseError(f"8: the 7b-shaped cell's {per_layer} B per layer "
+                         f"and step != phase 7b's {measured}")
+    out["7a_cell"], out["7b_per_layer"] = a["collectives"], per_layer
+    # (3) phase 6b's step: fake count against the card's
+    c = dryrun.count_on_mesh(
+        (1, 1), ("data", "model"),
+        lambda mesh: input_specs.build_cell(
+            "lm_train", train_cfg, {"batch": batch, "seq": seq}, mesh,
+            "baseline", device))
+    model = ParamTree(transformer.init_params(train_cfg, seed=seed,
+                                              device=device))
+    opt = adamw.init(dict(model.named_parameters()))
+    step = make_train_step(
+        lambda m, bb: transformer.lm_loss(m.tree(), bb, train_cfg),
+        input_specs.OPT)
+    toks = next(synth.token_batches(np.random.default_rng(seed + 5),
+                                    train_cfg.vocab, batch, seq))
+    tb = {k: torch.from_numpy(np.asarray(v)).to(device)
+          for k, v in toks.items()}
+    with FlopCounterMode(display=False) as fc:
+        model, opt, _ = step(model, opt, tb)
+    sync(device)
+    real = fc.get_total_flops()
+    t0 = time.perf_counter()
+    model, opt, metrics = step(model, opt, tb)
+    float(metrics["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    r = c["roofline"]
+    print(f"8 6b step ({train_cfg.name}, {train_cfg.n_layers} layers, "
+          f"{batch} x {seq}, remat per layer): fake-tensor count "
+          f"{c['cost']['flops_per_device']:.6e} FLOPs, FlopCounterMode over "
+          f"one real step on {device} {real:.6e}; measured {ms:.2f} ms per "
+          f"step against the dry run's step_s_lower_bound "
+          f"{r['step_s_lower_bound'] * 1e3:.2f} ms (dominant {r['dominant']};"
+          f" compute {r['compute_s'] * 1e3:.2f} ms, memory "
+          f"{r['memory_s'] * 1e3:.2f} ms)", flush=True)
+    del model, opt
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    if c["cost"]["flops_per_device"] != real:
+        raise PhaseError(f"8: the fake-tensor FLOP count "
+                         f"{c['cost']['flops_per_device']} != the card's "
+                         f"{real}")
+    out["6b"] = {"flops": real, "ms": ms, "roofline": r}
+    return out
 
 
 def main(argv=None) -> int:
@@ -4140,8 +4850,15 @@ def main(argv=None) -> int:
 
     # the distribution slice, in spawned ranks (their kernels count there)
     t0 = time.perf_counter()
-    phase_dist(args.seed, DIST_SIZES[args.dist_sizes])
+    dist_res = phase_dist(args.seed, DIST_SIZES[args.dist_sizes])
     print(f"7 phase: {time.perf_counter() - t0:.2f} s host wall clock",
+          flush=True)
+
+    # the dry run, cross-checked against phases 6b and 7
+    t0 = time.perf_counter()
+    phase_dryrun(args.seed, dist_res, DIST_SIZES[args.dist_sizes], gemma,
+                 **{k: sizes["6b"][k] for k in ("batch", "seq")})
+    print(f"8 phase: {time.perf_counter() - t0:.2f} s host wall clock",
           flush=True)
 
     rows = []

@@ -26,9 +26,33 @@ has no partitioner and shards explicitly:
 
 Every collective records (op, axes, bytes this rank hands it) in
 :data:`counts` (reset by :func:`reset_counts`), as the kernels count
-their launches.  Tensors go to the backend where they lie: NCCL moves
-CUDA memory, and gloo takes CUDA tensors too (through a host copy of
-its own), so ranks that share one card run on gloo.
+their launches; one run in a backward pass records under ``op.bwd``.
+
+Autograd sees the collectives that carry float data, with JAX's
+transposes (where autograd records through a tensor that needs a
+gradient):
+
+* a body's :func:`all_to_all` (equal splits over dim 0): the same
+  all-to-all of the cotangent;
+* a body's :func:`all_gather`: a reduce-scatter of the cotangent
+  (``psum_scatter``);
+* the :func:`shard_map` boundary, whose gathers are the port's own (the
+  reference sees global arrays): a sharded output that every rank reads
+  whole keeps this rank's block of the cotangent (every rank's loss is
+  the same copy), scaled by 1 / the ranks over the mesh axes its spec
+  does not name (those ranks hold the same output); a whole input,
+  sliced to this rank's block, gets the whole cotangent back: a ``psum``
+  over the axes its spec does not name, then one all-gather per
+  sharded dim; a :class:`Held` input gets the ``psum`` over the axes its
+  spec does not name (its ranks hold the same block), a :class:`Held`
+  output the identity;
+* :func:`psum`, :func:`pmax` and :func:`pmean` raise instead: no
+  training path differentiates through them (``grad_sync`` works on
+  gradients, split-K decode under ``no_grad``).
+
+Tensors go to the backend where they lie: NCCL moves CUDA memory, and
+gloo takes CUDA tensors too (through a host copy of its own), so ranks
+that share one card run on gloo.
 
 Spec arguments to :func:`constrain` are FUNCTIONS of the mesh (e.g.
 ``lambda m: P(dp_axes(m), "model")``) so model code never has to know
@@ -76,10 +100,14 @@ class Mesh:
     outermost first.  Built by :func:`make_mesh` on every rank (it makes
     the process group of every tuple of two or more axes, row-major, so
     all ranks must build it together).  ``backend`` is the process
-    group's; tensors stay on the device of the tensors passed in."""
+    group's; tensors stay on the device of the tensors passed in.
+    ``held`` maps the name of each parameter that a model's
+    ``local_params`` cut to this rank's block to its :class:`Held` spec
+    (``optim.adamw.global_norm`` reads it under the installed mesh)."""
 
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
+        self.held: Dict[str, "Held"] = {}
         self.axis_names = tuple(device_mesh.mesh_dim_names)
         sizes = tuple(int(s) for s in device_mesh.mesh.shape)
         self.shape = dict(zip(self.axis_names, sizes))
@@ -219,15 +247,101 @@ def local_block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x
 
 
-def reassemble(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+def reassemble(x: torch.Tensor, spec, mesh,
+               op: str = "all_gather") -> torch.Tensor:
     """The whole tensor from every rank's block ``x`` by ``spec``: one
     all-gather per sharded dim (the identity for a replicated spec)."""
     for dim, entry in enumerate(spec):
         axes = _axes(entry)
         if axes:
-            parts = _all_gather(mesh, x, axes)
+            parts = _gather(mesh, x, axes, op)
             x = torch.cat(parts.unbind(0), dim=dim)
     return x
+
+
+def _unnamed(spec, mesh) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that ``spec`` does not name
+    (in mesh order): its tensor is the same on each of their ranks."""
+    named = {a for entry in spec for a in _axes(entry)}
+    return tuple(a for a in mesh.axis_names
+                 if a not in named and int(mesh.shape[a]) > 1)
+
+
+def _records(x) -> bool:
+    return isinstance(x, torch.Tensor) and torch.is_grad_enabled() \
+        and x.requires_grad
+
+
+def _psum_unnamed(g, spec, mesh):
+    axes = _unnamed(spec, mesh)
+    return _reduce_raw(mesh, g, axes, tdist.ReduceOp.SUM, "psum.bwd") \
+        if axes else g
+
+
+class _BlockIn(torch.autograd.Function):
+    """A whole input sliced to this rank's block; backward: the whole
+    cotangent (``psum`` over the unnamed axes, then the gathers)."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return local_block(x, spec, mesh).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _psum_unnamed(g, ctx.spec, ctx.mesh)
+        return reassemble(g, ctx.spec, ctx.mesh, "all_gather.bwd"), None, \
+            None
+
+
+class _HeldIn(torch.autograd.Function):
+    """A held block, the same on the ranks of the axes its spec does not
+    name; backward: the ``psum`` of the cotangent over them."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_unnamed(g, ctx.spec, ctx.mesh), None, None
+
+
+class _WholeOut(torch.autograd.Function):
+    """A sharded output reassembled whole; backward: this rank's block
+    of the cotangent over the ranks that hold the same block."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return reassemble(x, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        blk = local_block(g, ctx.spec, ctx.mesh)
+        n = axis_size(ctx.mesh, _unnamed(ctx.spec, ctx.mesh))
+        return (blk / n if n > 1 else blk.clone()), None, None
+
+
+def _enter(x, spec, mesh):
+    """A ``shard_map`` input as its body sees it (module docstring)."""
+    if isinstance(spec, Held):
+        if _records(x) and _unnamed(spec, mesh):
+            return _HeldIn.apply(x, spec, mesh)
+        return x
+    if _records(x):
+        return _BlockIn.apply(x, spec, mesh)
+    return local_block(x, spec, mesh)
+
+
+def _leave(x, spec, mesh):
+    """A ``shard_map`` output as its caller sees it."""
+    if isinstance(spec, Held):
+        return x
+    if _records(x):
+        return _WholeOut.apply(x, spec, mesh)
+    return reassemble(x, spec, mesh)
 
 
 def _map(fn, tree, spec):
@@ -246,8 +360,7 @@ def shard_map(f, *, mesh, in_specs, out_specs):
 
     def run(*args):
         global _BODY
-        local = [_map(lambda x, s: x if isinstance(s, Held)
-                      else local_block(x, s, mesh), a, s)
+        local = [_map(lambda x, s: _enter(x, s, mesh), a, s)
                  for a, s in zip(args, in_specs)]
         outer, _BODY = _BODY, mesh
         try:
@@ -256,7 +369,7 @@ def shard_map(f, *, mesh, in_specs, out_specs):
             _BODY = outer
 
         def whole(x, s):
-            return x if isinstance(s, Held) else reassemble(x, s, mesh)
+            return _leave(x, s, mesh)
         if isinstance(out_specs, Spec):
             return _map(whole, out, out_specs)
         return tuple(_map(whole, o, s) for o, s in zip(out, out_specs))
@@ -283,14 +396,59 @@ def _body() -> Mesh:
     return _BODY
 
 
-def _all_gather(mesh: Mesh, x: torch.Tensor, axes) -> torch.Tensor:
+def _gather(mesh: Mesh, x: torch.Tensor, axes, op: str) -> torch.Tensor:
     axes = _axes(axes)
-    _record("all_gather", axes, x.numel() * x.element_size())
+    _record(op, axes, x.numel() * x.element_size())
     group = mesh.group(axes)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(tdist.get_world_size(group))]
     tdist.all_gather(parts, x, group=group)
     return torch.stack(parts)
+
+
+def _a2a(mesh: Mesh, x: torch.Tensor, axes, op: str) -> torch.Tensor:
+    _record(op, axes, x.numel() * x.element_size())
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    tdist.all_to_all_single(out, x, group=mesh.group(axes))
+    return out
+
+
+def _reduce_raw(mesh: Mesh, x: torch.Tensor, axes, how,
+                op: str) -> torch.Tensor:
+    _record(op, axes, x.numel() * x.element_size())
+    out = x.clone(memory_format=torch.contiguous_format)
+    tdist.all_reduce(out, op=how, group=mesh.group(axes))
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _gather(mesh, x, axes, "all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        # JAX's transpose, psum_scatter: the sum over the group of every
+        # rank's cotangent, this rank's row of it (an all-reduce, then
+        # the row: gloo has no reduce-scatter)
+        mesh, axes = ctx.mesh, ctx.axes
+        total = _reduce_raw(mesh, g, axes, tdist.ReduceOp.SUM,
+                            "psum_scatter.bwd")
+        return total[_index(mesh, axes)], None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _a2a(mesh, x, axes, "all_to_all")
+
+    @staticmethod
+    def backward(ctx, g):
+        # equal splits over dim 0: the all-to-all is its own transpose
+        return _a2a(ctx.mesh, g, ctx.axes, "all_to_all.bwd"), None, None
 
 
 def axis_index(axes) -> int:
@@ -302,7 +460,10 @@ def axis_index(axes) -> int:
 def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
     """Every rank's ``x`` over ``axes``, stacked on a new leading dim in
     row-major rank order."""
-    return _all_gather(_body(), x, axes)
+    mesh, axes = _body(), _axes(axes)
+    if _records(x):
+        return _AllGather.apply(x, mesh, axes)
+    return _gather(mesh, x, axes, "all_gather")
 
 
 def all_to_all(x: torch.Tensor, axes, split_axis: int = 0,
@@ -312,19 +473,19 @@ def all_to_all(x: torch.Tensor, axes, split_axis: int = 0,
     if split_axis != 0 or concat_axis != 0:
         raise ValueError("all_to_all splits and concatenates dim 0 only")
     mesh, axes = _body(), _axes(axes)
-    _record("all_to_all", axes, x.numel() * x.element_size())
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    tdist.all_to_all_single(out, x, group=mesh.group(axes))
-    return out
+    if _records(x):
+        return _AllToAll.apply(x, mesh, axes)
+    return _a2a(mesh, x, axes, "all_to_all")
 
 
 def _reduce(op: str, x: torch.Tensor, axes, how) -> torch.Tensor:
+    if _records(x):
+        raise RuntimeError(
+            f"dist.{op} has no backward: no training path differentiates "
+            f"through it; run it under torch.no_grad() or on a tensor "
+            f"that needs no gradient")
     mesh, axes = _body(), _axes(axes)
-    _record(op, axes, x.numel() * x.element_size())
-    out = x.clone(memory_format=torch.contiguous_format)
-    tdist.all_reduce(out, op=how, group=mesh.group(axes))
-    return out
+    return _reduce_raw(mesh, x, axes, how, op)
 
 
 def psum(x: torch.Tensor, axes) -> torch.Tensor:
@@ -337,6 +498,20 @@ def pmax(x: torch.Tensor, axes) -> torch.Tensor:
 
 def pmean(x: torch.Tensor, axes) -> torch.Tensor:
     return psum(x, axes) / axis_size(_body(), axes)
+
+
+def held_sum(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The sum of ``x``, a value this rank computed from its block of a
+    tensor held by ``spec``, over the ranks that hold the other blocks:
+    a ``psum`` over the axes ``spec`` names (outside a body; no
+    backward)."""
+    named = {a for entry in spec for a in _axes(entry)}
+    axes = tuple(a for a in mesh.axis_names if a in named)
+    if not axes:
+        return x
+    if _records(x):
+        raise RuntimeError("dist.held_sum has no backward")
+    return _reduce_raw(mesh, x, axes, tdist.ReduceOp.SUM, "psum")
 
 
 from . import collectives, sharding  # noqa: E402,F401

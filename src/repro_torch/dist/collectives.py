@@ -73,7 +73,7 @@ def _route_keep(logits_l, k, e, e_loc, n_model, tok_axes, mesh,
         # exclusive prefix of per-expert counts over all ranks in global
         # token order: rank = row-major index over the token sharding
         # axes, matching the (dp..., model) layout of the global tokens
-        counts = torch.bincount(flat_e, minlength=e).to(torch.int32)
+        counts = moe.expert_counts(flat_e, e).to(torch.int32)
         all_counts = dist.all_gather(counts, tok_axes)
         all_counts = all_counts.reshape(n_tok_dev, e)
         my = 0
@@ -213,8 +213,7 @@ def moe_alltoall_block(xf, logits, w_gate, w_up, w_down, mesh, top_k,
         # rows per local expert: at most the global capacity, else (the
         # local rule) the most any expert received, read on the host
         m = int(capacity) if overflow == "global" else \
-            max(1, int(torch.bincount(re + 1, minlength=e_loc + 1)[1:]
-                       .max()))
+            max(1, int(moe.expert_counts(re + 1, e_loc + 1)[1:].max()))
         out = _expert_ffn(rx, re, wg, wu, wd, m)
 
         back = dist.all_to_all(out.reshape(n_model, c_dev, d), "model", 0,

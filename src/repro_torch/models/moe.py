@@ -97,6 +97,22 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def expert_counts(expert_flat: torch.Tensor, n_experts: int
+                  ) -> torch.Tensor:
+    """Pairs per expert id (int64, ``n_experts`` long): a bincount whose
+    length does not depend on the ids, as a fake-tensor run needs."""
+    return torch.zeros((n_experts,), dtype=torch.int64,
+                       device=expert_flat.device).index_add_(
+        0, expert_flat.long(), torch.ones_like(expert_flat, dtype=torch.int64))
+
+
+def one_hot_mean(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """``mean(one_hot(idx, n_experts).float(), 0)`` without one_hot's
+    read of the ids' range (shape-static, for fake tensors)."""
+    hits = idx[:, None] == torch.arange(n_experts, device=idx.device)
+    return torch.mean(hits.float(), dim=0)
+
+
 def dispatch(expert_flat: torch.Tensor, n_experts: int, c: int):
     """Each (token, slot)'s position in its expert's buffer, in token
     order (a stable sort by expert), and whether it fits the capacity
@@ -137,7 +153,7 @@ def moe_block(p: Param, x: torch.Tensor, cfg: MoEConfig
 
     # Switch load-balance loss: E * sum_e f_e * P_e
     me = torch.mean(probs, dim=0)                            # (E,)
-    ce = torch.mean(F.one_hot(idx[:, 0], e).float(), dim=0)
+    ce = one_hot_mean(idx[:, 0], e)
     aux = e * torch.sum(me * ce)
 
     # ---- dispatch: position of each (token, slot) inside its expert -------
@@ -179,16 +195,22 @@ def _swiglu(expert_in, w_gate, w_up, w_down):
     return torch.bmm(F.silu(g) * u, w_down)
 
 
-def expert_block(p: Param, mesh, stacked: bool = False) -> Param:
+def expert_block(p: Param, mesh, stacked: bool = False,
+                 name: str = "") -> Param:
     """``p`` with the expert weights replaced by this rank's block of
     the expert axis (``_ep_spec``; ``stacked``: behind a leading layer
     dim), as ``_moe_a2a`` holds them.  Copies, so the whole weights can
-    be freed."""
+    be freed.  With ``name``, the dotted path of ``p`` in a model's
+    parameter tree, each cut weight is recorded in ``mesh.held`` under its
+    parameter name, so that a norm over the tree sums the other ranks'
+    blocks."""
     spec = _ep_spec(mesh)
     if stacked:
         spec = dist.P(None, *spec)
-    return {k: dist.local_block(v, spec, mesh).clone()
-            if k in ("w_gate", "w_up", "w_down") else v
+    cut = ("w_gate", "w_up", "w_down")
+    if name:
+        mesh.held.update({f"{name}.{k}": dist.Held(spec) for k in cut})
+    return {k: dist.local_block(v, spec, mesh).clone() if k in cut else v
             for k, v in p.items()}
 
 
@@ -216,7 +238,7 @@ def _moe_a2a(p: Param, x: torch.Tensor, cfg: MoEConfig, mesh
     probs = torch.softmax(logits, dim=-1)
     _, top1 = top_k(probs, 1)
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(top1[:, 0], cfg.n_experts).float(), dim=0)
+    ce = one_hot_mean(top1[:, 0], cfg.n_experts)
     aux = cfg.n_experts * torch.sum(me * ce)
 
     dp = 1

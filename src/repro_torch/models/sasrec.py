@@ -22,21 +22,24 @@ flash kernel cannot express.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist
 from repro_torch.core.analytics import check_device
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 
 from .layers import params_from_jax
+from .moe import top_k
 
 Param = dict
 
 __all__ = ["SASRecConfig", "bce_loss", "encode", "init_params",
            "params_from_jax", "score_candidates", "score_catalog",
-           "set_use_kernel", "table_rows"]
+           "set_use_kernel", "table_rows", "topk_catalog"]
 
 _USE_KERNEL = True
 
@@ -164,6 +167,40 @@ def score_catalog(params: Param, hist: torch.Tensor, cfg: SASRecConfig):
     """Serve: score every item for each user (B, n_items+1)."""
     h = encode(params, hist, cfg)[:, -1, :]                # (B, d)
     return h @ params["item_emb"].T
+
+
+@torch.no_grad()
+def topk_catalog(params: Param, hist: torch.Tensor, cfg: SASRecConfig,
+                 mesh, k: int = 100):
+    """Serve under ``mesh``: the top ``k`` items for each user over the
+    whole catalogue, as ``(values, indices)`` (B, k), ties toward the
+    lower index (the reference's ``_rec_serve``).
+
+    The user encodings are computed whole on every rank (B x d, small);
+    each rank then scores its block of the users (over the dp axes that
+    divide B) against its block of the catalogue (over ``"model"``) and
+    keeps its top ``k`` with globally offset indices; the (B, shards x k)
+    candidates come back whole and a merge takes their top ``k``.  That is
+    the function GSPMD gives the reference, without any rank holding all
+    B x V scores."""
+    h = encode(params, hist, cfg)[:, -1, :]                # (B, d)
+    dp = dist.sharding.dp_axes(mesh)
+    n_dp = math.prod(mesh.shape[a] for a in dp)
+    bax = dp if dp and h.shape[0] % n_dp == 0 else None
+
+    def local_topk(hb, tb):                 # (B/dp, d), (V/model, d)
+        v_loc, i_loc = top_k(hb @ tb.T, k)
+        off = dist.axis_index("model") * tb.shape[0]
+        return v_loc, (i_loc + off).to(torch.int32)
+
+    v_loc, i_loc = dist.shard_map(
+        local_topk, mesh=mesh,
+        in_specs=(dist.P(bax, None), dist.P("model", None)),
+        out_specs=(dist.P(bax, "model"), dist.P(bax, "model")))(
+            h, params["item_emb"])
+    # (B, model x k) candidates in shard order; the merge is small
+    v_top, pos = top_k(v_loc, k)
+    return v_top, torch.gather(i_loc, 1, pos)
 
 
 @torch.no_grad()

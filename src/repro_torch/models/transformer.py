@@ -52,7 +52,7 @@ from .moe import MoEConfig, expert_block, init_moe, moe_block
 
 Param = dict
 
-__all__ = ["LMConfig", "chunked_ce", "decode_step", "forward",
+__all__ = ["LMConfig", "cache_len", "chunked_ce", "decode_step", "forward",
            "forward_features", "init_cache", "init_params", "lm_loss",
            "local_params", "params_from_jax", "prefill", "set_use_kernel"]
 
@@ -350,14 +350,14 @@ def lm_loss(params: Param, batch: dict, cfg: LMConfig):
 def local_params(params: Param, cfg: LMConfig, mesh) -> Param:
     """The tree this rank holds under ``mesh``: ``params`` with each MoE
     layer's expert weights cut to the rank's block when the layers take
-    the all-to-all (``moe_impl="a2a"`` and a ``"model"`` axis); the rest
-    is replicated and returned as it is."""
+    the all-to-all (``moe_impl="a2a"`` and a ``"model"`` axis), recorded
+    in ``mesh.held``; the rest is replicated and returned as it is."""
     if not (cfg.moe and cfg.moe.moe_impl == "a2a" and mesh is not None
             and "model" in mesh.axis_names):
         return params
     layers = dict(params["layers"],
                   moe=expert_block(params["layers"]["moe"], mesh,
-                                   stacked=True))
+                                   stacked=True, name="layers.moe"))
     return dict(params, layers=layers)
 
 
@@ -376,10 +376,26 @@ def _cache_spec(cfg: LMConfig, batch: int, max_len: int):
     return dist.Held(dist.P(None, bax, "model", None, None))
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
-    """KV cache dict: ``max_len`` slots for every layer (under split-K,
-    this rank's block of them, and ``"spec"``)."""
+def cache_len(cfg: LMConfig, max_len: int,
+              window_bounded: bool = False) -> int:
+    """Slots per layer of the KV cache: ``max_len``, or with
+    ``window_bounded`` the largest of the layers' windows, a global layer
+    counting as ``max_len`` (the reference's rule: one length for every
+    layer)."""
+    if not window_bounded:
+        return max_len
+    return int(max(w if w > 0 else max_len for w in cfg.layer_windows()))
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda",
+               window_bounded: bool = False):
+    """KV cache dict: ``cache_len(cfg, max_len, window_bounded)`` slots
+    for every layer (under split-K, this rank's block of them, and
+    ``"spec"``).  ``window_bounded=True`` allocates only the windows'
+    slots when every layer is windowed (the reference's
+    ``window_bounded``)."""
     check_device(device)
+    max_len = cache_len(cfg, max_len, window_bounded)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.d_head)
     spec = _cache_spec(cfg, batch, max_len)
     if spec is not None:

@@ -60,8 +60,19 @@ def schedule_lr(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tensors: Tensors) -> torch.Tensor:
-    total = sum(torch.sum(torch.square(x.to(torch.float32)))
-                for x in tensors.values())
+    """The norm over every tensor.  Under an installed mesh, a tensor
+    named in ``mesh.held`` is this rank's block of a parameter (or of its
+    gradient): its squared sum adds up over the ranks holding the other
+    blocks, so every rank gets the whole tree's norm."""
+    from repro_torch import dist
+    mesh = dist.get_mesh()
+    held = mesh.held if mesh is not None else {}
+    total = 0
+    for k, x in tensors.items():
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        if k in held:
+            sq = dist.held_sum(sq, held[k], mesh)
+        total = total + sq
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 

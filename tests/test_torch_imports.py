@@ -68,7 +68,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     n_modules = int(out.split("MODULES ")[1].split()[0])
-    assert n_modules >= 79, out
+    assert n_modules >= 82, out
     names = set(out.split("NAMES ")[1].split("\n")[0].split())
     assert {"repro_torch.runtime.server", "repro_torch.core.bsp",
             "repro_torch.core.twopl", "repro_torch.launch.serve",
@@ -81,8 +81,23 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.dist",
             "repro_torch.dist.sharding", "repro_torch.dist.collectives",
-            "repro_torch.launch.mesh"} <= names, out
+            "repro_torch.launch.mesh", "repro_torch.launch.input_specs",
+            "repro_torch.launch.hlo_cost",
+            "repro_torch.launch.dryrun"} <= names, out
     assert "LEAKED []" in out, out
     assert "False" not in out.split("LEAKED")[1], out
     assert out.count("NO_CUDA_RAISES") in (0, 4), out
     assert "CPU_OK" in out, out
+
+
+def test_every_reference_module_has_a_port_file():
+    """The module port is complete: each ``.py`` file of ``src/repro``
+    has one at the same path under ``src/repro_torch``."""
+    def files(pkg):
+        root = os.path.join(REPO, "src", pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, fs in os.walk(root) for f in fs
+                if f.endswith(".py")}
+    ref = files("repro")
+    assert len(ref) > 50
+    assert sorted(ref - files("repro_torch")) == []

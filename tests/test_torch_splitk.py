@@ -229,7 +229,8 @@ def test_dist_phase_rehearsal():
     import chip_smoke
     res = chip_smoke.phase_dist(0, chip_smoke.DIST_SIZES["rehearsal"],
                                 device="cpu")
-    assert set(res) == {"7a", "7a_serve", "7b", "7c", "7d"}, res
+    assert set(res) == {"7a", "7a_serve", "7b", "7c", "7d", "7e",
+                        "7e_step", "7e_topk", "7e_single"}, res
     kw = chip_smoke.DIST_SIZES["rehearsal"]
     for r in res["7a_serve"]:    # prefill and every step, each held
         assert r["attention"]["calls"] == \
@@ -237,3 +238,12 @@ def test_dist_phase_rehearsal():
     for r in res["7b"]:          # the prefills of both passes
         assert r["bf16"]["attention"]["calls"] == kw["7b"]["layers"]
         assert r["fp32"]["attention"]["calls"] == kw["7b"]["f32_layers"]
+    for r in res["7e"]:          # backward through the all-to-alls
+        for label in ("fp32", "bf16"):
+            assert r[label]["sent"]["all_to_all.bwd@model"]["calls"] \
+                == 2 * kw["7e"]["layers"]
+    for r in res["7e_step"]:     # the Trainer step clips by the whole norm
+        assert r["held"] == ["layers.moe.w_down", "layers.moe.w_gate",
+                             "layers.moe.w_up"]
+        assert r["sent"]["psum@model"]["calls"] == 3
+    assert all(r["rel_err"] == 0 for r in res["7e_topk"])
