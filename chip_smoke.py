@@ -76,6 +76,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``social_serve`` and ``coingraph``) run with ``--device cuda`` and
    ``--device cpu`` in this process: each exits 0, the card's calls
    launch the stamp compares, and both print the same text.
+3d. The column plane sharded over cards (``phase_sharded_plane``): the
+   paper deployment's layout (4 gatekeepers, so C = 5, and 8 shards)
+   with SNAP soc-LiveJournal1's 4,847,571 vertices and 68,993,773 edges
+   spread evenly over the shards' ``PartitionColumns`` (filled in bulk
+   through the tables' ``extend``; seeded stamps), resident through the
+   plane's ``sync`` on each device list: every card present, ``cuda:0``
+   listed 2 and 4 times, and with 2 or more cards 2 and 4 real cards
+   (the first line says which ran).  Every shard's four masks must be
+   bit-identical to the plain ``before`` on the card, at first and after
+   a round of appends, in-place patches and a forced compaction on two
+   shards; each ``before_all`` must launch once per entry, and the
+   plane's stats must be equal across the lists.  Then per list the
+   median ms of ``before_all`` and of its parts (launches and wait, the
+   bits' copy back, ``masks_for`` over the 8 shards), the kernel's
+   device ms per card (``torch.profiler``) and the rebuild seconds,
+   beside the bound (the busiest card's blocks read once and bits
+   written once at 3.35 TB/s).  Last, a Weaver at that layout over the
+   host-global deployment's users with the plane over 4 entries (4 cards
+   where present, else ``cuda:0`` 4 times) runs the seeded stream while
+   a worker runs it on the CPU with the plane off: the records must be
+   identical.
 2c. ``flash_attention`` against its plain version in fp32 on the card,
    each of its three variants (bf16 ``wgmma`` prefill, split-KV decode,
    fp32 CUDA-core prefill) at every kind of case: the reference tests'
@@ -242,6 +263,8 @@ from repro_torch import core  # noqa: E402
 from repro_torch.core import analytics  # noqa: E402
 from repro_torch.core.clock import NO_STAMP  # noqa: E402
 from repro_torch.data import graphs, synth  # noqa: E402
+from repro_torch.dist.columns import (  # noqa: E402
+    TABLES, DeviceColumnPlane)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mv_visibility import kernel as mvk  # noqa: E402
 from repro_torch.kernels.mv_visibility import ops as mvops  # noqa: E402
@@ -260,6 +283,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit rate (fp32 row)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 LIVEJOURNAL_EDGES = 68_993_773  # SNAP soc-LiveJournal1
+# the defaults of main's --small-users, --n-prog, --n-tx and --reps, and
+# so of run_phase_3d
+SMALL_USERS, N_PROG, N_TX, REPS = 20_000, 50, 300, 20
 OGB_PRODUCTS = (2_449_029, 61_859_140, 100, 64)  # N, E, d_feat, gin width
 
 KERNELS = {           # name -> what it replaces
@@ -327,6 +353,13 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def sync_all(devices) -> None:
+    """Wait for every card among ``devices``."""
+    for d in dict.fromkeys(torch.device(x) for x in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 # N of the small stamp cases: the tails of a 32-row bit word and of a
@@ -1948,7 +1981,6 @@ class BoundaryClock:
 
     def __init__(self):
         from repro_torch.core import writepath
-        from repro_torch.dist.columns import DeviceColumnPlane
         self.sites = [(analytics, "_before_batch"),
                       (analytics, "visible_edges_at"),
                       (writepath, "before_pairs"),
@@ -1992,27 +2024,27 @@ def plane_mask_forms(plane, reps: int = 20) -> dict:
     back, then a view per block and table) and bits (the plane's form:
     an int32 word per 32 rows copied back, then each block's synced rows
     unpacked by ``np.unpackbits``).  Parts: launch (the wrapper's host
-    time), wait (until the kernel is done), copy (device to host, into
-    numpy) and masks.  The two forms' masks must be equal."""
+    time, every device's block tensor in turn), wait (until every card is
+    done), copy (device to host, into numpy) and masks.  The two forms'
+    masks must be equal."""
     if plane._masks_q is None:
         raise PhaseError("plane forms: the plane answered no query")
-    qd = torch.from_numpy(np.frombuffer(plane._masks_q, np.int32).copy()
-                          ).to(plane.device)
-    blocks = plane._blocks
-    s_, t_, cap = blocks.shape[:3]
-    rows = blocks.view(-1, plane.c)
+    q = np.frombuffer(plane._masks_q, np.int32).copy()
+    qd = [torch.from_numpy(q).to(d) for d in plane.devices]
+    rows = [b.view(-1, plane.c) for b in plane._dev]
+    s_, t_, cap = plane.n_dev * plane._spd, TABLES, plane._cap
     # (block, table, synced rows): tables 0, 1 hold vertices, 2, 3 edges
     spans = [(bi, t, cur[t // 2]) for bi, cur in enumerate(plane._consumed)
              for t in range(t_)]
 
     def form(bits: bool):
         t0 = time.perf_counter()
-        out = (mvk.before(rows, qd, bits=True) if bits
-               else mvops.before_mask(rows, qd))
+        outs = [mvk.before(r, qq, bits=True) if bits
+                else mvops.before_mask(r, qq) for r, qq in zip(rows, qd)]
         t1 = time.perf_counter()
-        torch.cuda.synchronize()
+        sync_all(plane.devices)
         t2 = time.perf_counter()
-        host = out.cpu().numpy()
+        host = np.concatenate([o.cpu().numpy() for o in outs])
         t3 = time.perf_counter()
         if bits:
             w = host.view(np.uint8)
@@ -2030,7 +2062,7 @@ def plane_mask_forms(plane, reps: int = 20) -> dict:
     for name, bits in (("bytes", False), ("bits", True)):
         parts = []
         for i in range(reps + 3):
-            torch.cuda.synchronize()
+            sync_all(plane.devices)
             masks[name], secs = form(bits)
             if i >= 3:                              # after 3 warm-ups
                 parts.append(secs)
@@ -2040,19 +2072,24 @@ def plane_mask_forms(plane, reps: int = 20) -> dict:
            for a, b in zip(masks["bytes"], masks["bits"])):
         raise PhaseError("plane forms: the bit form's masks != the byte "
                          "form's")
-    out["rows"] = int(rows.shape[0])
+    out["rows"] = int(sum(r.shape[0] for r in rows))
     out["synced_rows"] = int(sum(n for _, _, n in spans))
     return out
 
 
-def run_on(device: str, seed: int, n_users: int, plane: bool, n_prog: int,
-           n_tx: int, serve_requests: int = 0):
+def run_on(device, seed: int, n_users: int, plane: bool, n_prog: int,
+           n_tx: int, serve_requests: int = 0, layout: tuple = (2, 4)):
     """One run of the deployment's seeded stream on ``device``: (steps,
     records, launch counts of this run, host seconds, entry-point line,
-    the serving steps' figures (``serve_clock``), the Weaver)."""
+    the serving steps' figures (``serve_clock``), the Weaver).
+    ``device`` may be a device list: the column plane's, whose first
+    entry runs the rest (``WeaverConfig.device``); ``layout`` is
+    (gatekeepers, shards)."""
+    lead = device if isinstance(device, str) else str(device[0])
     steps = make_stream(seed, n_users, n_tx=n_tx, n_prog=n_prog,
                         gc_period=GC_PERIOD, serve_requests=serve_requests)
-    cfg = core.WeaverConfig(n_gatekeepers=2, n_shards=4, device=device,
+    cfg = core.WeaverConfig(n_gatekeepers=layout[0], n_shards=layout[1],
+                            device=device,
                             device_shard_columns=plane,
                             write_group_commit=1e-3, seed=seed,
                             gc_period=GC_PERIOD,
@@ -2061,10 +2098,10 @@ def run_on(device: str, seed: int, n_users: int, plane: bool, n_prog: int,
     serving = {}
     t0 = time.perf_counter()
     with BoundaryClock() as bc:
-        recs, w = run_stream(core, analytics, cfg, steps, device=device,
-                             around_serve=lambda: serve_clock(device,
+        recs, w = run_stream(core, analytics, cfg, steps, device=lead,
+                             around_serve=lambda: serve_clock(lead,
                                                               serving))
-        sync(device)
+        sync_all(w.device_plane.devices if w.device_plane else [lead])
     secs = time.perf_counter() - t0
     return steps, recs, dict(mvk.launches), secs, bc.line(), serving, w
 
@@ -2176,6 +2213,361 @@ def deployment(label: str, seed: int, n_users: int, plane: bool,
           f"visible_edges_at{', serving loops' if serving else ''})",
           flush=True)
     return counts, w, serving.get("counts")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: the column plane sharded over devices, at LiveJournal's size
+# ---------------------------------------------------------------------------
+
+LIVEJOURNAL_VERTICES = 4_847_571  # SNAP soc-LiveJournal1
+# the round of changes between the phase's two checks: appends on shard
+# 5, in-place patches on shards 1 and 6, a purge and a forced compaction
+# on shards 2 and 7 (each pair on two devices of a 2- or 4-entry list)
+PLANE_APPEND_SHARD, PLANE_PATCH_SHARDS, PLANE_COMPACT_SHARDS = 5, (1, 6), \
+    (2, 7)
+
+
+def plane_columns(rng, n_gk: int, n_shards: int, n_v: int, n_e: int,
+                  q: np.ndarray) -> list:
+    """``n_shards`` partitions' columns holding ``n_v`` vertices and
+    ``n_e`` edges spread evenly, filled in bulk through the tables' own
+    ``extend`` with ``stamp_rows`` around ``q``."""
+    from repro_torch.core.mvgraph import PartitionColumns
+    out = []
+    for s_ in range(n_shards):
+        nv = n_v // n_shards + (s_ < n_v % n_shards)
+        ne = n_e // n_shards + (s_ < n_e % n_shards)
+        c = PartitionColumns(n_gk)
+        plane_append(rng, c, nv, ne, q)
+        out.append(c)
+    return out
+
+
+def delete_rows(rng, n: int, q: np.ndarray) -> np.ndarray:
+    """(n, C) delete stamps: ``NO_STAMP`` (never deleted) but for an
+    eighth of the rows, drawn by ``stamp_rows``."""
+    rows = np.full((n, q.size), NO_STAMP, np.int32)
+    hit = rng.random(n, dtype=np.float32) < 0.125
+    rows[hit] = stamp_rows(rng, int(hit.sum()), q)
+    return rows
+
+
+def plane_append(rng, c, nv: int, ne: int, q: np.ndarray) -> None:
+    """Append ``nv`` vertex and ``ne`` edge rows to columns ``c`` in bulk
+    (create stamps from ``stamp_rows``, delete stamps from
+    ``delete_rows``; the per-row Stamp lists hold None, as a compaction
+    only reorders them)."""
+    v0 = c.n_v
+    c.v_gid.extend(np.arange(v0, v0 + nv, dtype=np.int32))
+    c.v_create.extend(stamp_rows(rng, nv, q))
+    c.v_delete.extend(delete_rows(rng, nv, q))
+    c.e_src.extend(rng.integers(0, v0 + nv, ne, dtype=np.int32))
+    c.e_dst.extend(rng.integers(0, v0 + nv, ne, dtype=np.int32))
+    c.e_eid.extend(np.arange(c.n_e, c.n_e + ne, dtype=np.int64))
+    c.e_create.extend(stamp_rows(rng, ne, q))
+    c.e_delete.extend(delete_rows(rng, ne, q))
+    for name, n in (("v_create_stamp", nv), ("v_delete_stamp", nv),
+                    ("e_create_stamp", ne), ("e_delete_stamp", ne)):
+        getattr(c, name).extend([None] * n)
+    c.version += 1
+
+
+def plane_changes(rng, cols: list, q: np.ndarray) -> dict:
+    """One round of changes through the columns' change feed: appends,
+    in-place stamp patches (logged in ``v_patch`` / ``e_patch``, as
+    ``_set_row`` and ``_log_patch`` log them), and a purge of 5 % of two
+    shards' edges followed by a forced ``compact()``."""
+    n = {}
+    c = cols[PLANE_APPEND_SHARD]
+    nv, ne = max(1, c.n_v // 64), max(1, c.n_e // 64)
+    plane_append(rng, c, nv, ne, q)
+    n["appended"] = nv + ne
+    for s_ in PLANE_PATCH_SHARDS:
+        c = cols[s_]
+        for tbl, log, rows in ((c.v_delete, c.v_patch, c.n_v // 100),
+                               (c.e_delete, c.e_patch, c.n_e // 100)):
+            idx = rng.choice(tbl.n, size=max(1, rows), replace=False)
+            tbl.view()[idx] = stamp_rows(rng, idx.size, q)
+            log.extend(idx.tolist())
+            n["patched"] = n.get("patched", 0) + idx.size
+        c.version += 1
+    for s_ in PLANE_COMPACT_SHARDS:
+        c = cols[s_]
+        idx = rng.choice(c.n_e, size=max(1, c.n_e // 20), replace=False)
+        c.e_create.view()[idx] = NO_STAMP
+        c.e_delete.view()[idx] = NO_STAMP
+        c.e_patch.extend(idx.tolist())
+        c.compact()
+        n["purged"] = n.get("purged", 0) + idx.size
+    return n
+
+
+def plain_masks(cols: list, q: np.ndarray, device) -> list:
+    """Each shard's four masks from the plain PyTorch ``before`` over its
+    tables on ``device``."""
+    qd = torch.from_numpy(q).to(device)
+    return [tuple(mvref.before(torch.from_numpy(t.view()).to(device),
+                               qd).cpu().numpy()
+                  for t in (c.v_create, c.v_delete, c.e_create, c.e_delete))
+            for c in cols]
+
+
+def plane_check(label: str, plane, cols: list, want: list) -> None:
+    """Every shard's four masks from the plane == ``want``, bit for bit."""
+    bad = []
+    for s_, c in enumerate(cols):
+        for t, (m, w_) in enumerate(zip(plane.masks_for(c), want[s_])):
+            if m.shape != w_.shape or not np.array_equal(m, w_):
+                bad.append((s_, t, -1 if m.shape != w_.shape
+                            else int((m != w_).sum())))
+    if bad:
+        raise PhaseError(f"sharded plane {label}: masks != plain before "
+                         f"(shard, table, rows that differ): {bad[:8]}")
+
+
+def plane_device_lists(device: str = "cuda") -> list:
+    """(label, device list) of the sharded-plane phase: every card
+    present, ``cuda:0`` listed 2 and 4 times, and with 2 or more cards 2
+    and 4 real cards (``device="cpu"``: 1, 2 and 4 CPU entries)."""
+    from repro_torch.launch.mesh import make_columns_mesh
+    if device == "cpu":
+        return [(f"cpu x{n}", make_columns_mesh(n, device="cpu"))
+                for n in (1, 2, 4)]
+    n = torch.cuda.device_count()
+    one = torch.device("cuda", 0)
+    lists = [(f"every card ({n})", make_columns_mesh()),
+             ("cuda:0 x2", [one] * 2), ("cuda:0 x4", [one] * 4)]
+    lists += [(f"{k} real cards", make_columns_mesh(k)) for k in (2, 4)
+              if k < n]
+    return lists
+
+
+def plane_bound_ms(plane) -> tuple:
+    """(the busiest card's bound, the whole plane's synced rows' bound):
+    bytes over HBM_BYTES_PER_S, a card's being every block it holds read
+    once and its bit words written once."""
+    per_entry = plane._spd * TABLES * plane._cap * (plane.c * 4 + 1 / 8)
+    cards = {}
+    for d in plane.devices:
+        cards[d] = cards.get(d, 0.0) + per_entry
+    synced = sum(2 * (cur[0] + cur[1]) for cur in plane._consumed)
+    return (max(cards.values()) / HBM_BYTES_PER_S * 1e3,
+            synced * (plane.c * 4 + 1 / 8) / HBM_BYTES_PER_S * 1e3)
+
+
+def plane_device_ms(plane, qs: tuple, calls: int = 5) -> dict:
+    """Device ms of the ``before`` kernel per card per answered
+    ``before_all`` (``torch.profiler`` over ``calls`` calls alternating
+    ``qs``: a card's kernel time over its launches, times its entries);
+    the trace is taken again, up to 3 times, when it shows none."""
+    from torch.profiler import ProfilerActivity, profile
+    entries = {}
+    for d in plane.devices:
+        entries[f"cuda:{d.index}"] = entries.get(f"cuda:{d.index}", 0) + 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                plane.before_all(qs[i % 2])
+        us, n = {}, {}
+        for ev in prof.events():
+            if "compare_kernel" not in ev.name \
+                    or "CUDA" not in str(ev.device_type):
+                continue
+            key = f"cuda:{ev.device_index}"
+            us[key] = us.get(key, 0.0) + ev.device_time_total
+            n[key] = n.get(key, 0) + 1
+        if us:
+            return {k: us[k] / n[k] * entries[k] / 1e3 for k in us}
+    return {}
+
+
+def plane_timings(plane, cols: list, qs: tuple, reps: int,
+                  device: str) -> dict:
+    """Median host ms (``reps`` after 3 warm-ups, queries alternating so
+    no call hits the cache) of a whole ``before_all`` and of its parts
+    taken apart: every card's launch then a wait on each, the bits' copy
+    back then a wait on each, and ``masks_for`` over every shard; with
+    the kernel's device ms per card (``torch.profiler``)."""
+    parts = {"before_all": [], "launch_wait": [], "copy": [], "masks": []}
+    for i in range(reps + 3):
+        q = qs[i % 2]
+        t0 = time.perf_counter()
+        plane.before_all(q)
+        t1 = time.perf_counter()
+        words = plane._launch_all(q)
+        plane._wait()
+        t2 = time.perf_counter()
+        plane._copy_back(words)
+        plane._wait()
+        t3 = time.perf_counter()
+        for c in cols:
+            plane.masks_for(c)
+        t4 = time.perf_counter()
+        if i >= 3:
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[k].append(dt * 1e3)
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    out["device_ms"] = (plane_device_ms(plane, qs) if device != "cpu"
+                        else {})
+    return out
+
+
+def sharded_deployment(seed: int, n_users: int, n_prog: int, n_tx: int,
+                       devices: list, layout: tuple) -> dict:
+    """A Weaver at ``layout`` with the column plane over ``devices`` runs
+    the seeded stream on the card while a worker process runs the same
+    stream on the CPU with the plane off; the records (results, counters,
+    snapshot arrays) must be identical and the plane must have launched
+    on every entry."""
+    args = (seed, n_users, False, n_prog, n_tx, 0, layout)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
+        twin = pool.submit(cpu_twin, *args)
+        steps, recs, counts, secs, line, _, w = run_on(
+            devices, seed, n_users, True, n_prog, n_tx, 0, layout)
+        (n_steps, cpu_recs, cpu_counts, cpu_secs, *_) = twin.result()
+    plane = w.device_plane
+    bad = diff_records(recs, cpu_recs)
+    if bad:
+        raise PhaseError("sharded plane deployment: plane over "
+                         f"{len(devices)} entries != plane off:\n"
+                         + "\n".join(bad[:10]))
+    on_card = torch.device(devices[0]).type == "cuda"
+    if plane.n_dev != len(devices) or not plane.stats["launches"] \
+            or on_card != (counts["before"]
+                           >= plane.n_dev * plane.stats["launches"]):
+        raise PhaseError(f"sharded plane deployment: plane {plane.n_dev} "
+                         f"entries, stats {plane.stats}, launches {counts}")
+    return {"steps": len(steps), "secs": secs, "cpu_secs": cpu_secs,
+            "counts": counts, "stats": dict(plane.stats), "line": line,
+            "spd": plane._spd, "cap": plane._cap, "entries": plane.n_dev}
+
+
+def phase_sharded_plane(seed: int, n_e: int, reps: int, n_users: int,
+                        n_prog: int, n_tx: int,
+                        device: str = "cuda") -> dict:
+    """Phase 3d (see the module note): PAPER_DEPLOYMENT's layout (4
+    gatekeepers, so C = 5, and 8 shards) over ``n_e`` edges and
+    LiveJournal's vertices per edge, spread evenly over the shards; the
+    plane over each device list of :func:`plane_device_lists`, checked
+    against the plain ``before`` before and after a round of changes,
+    then timed; last, a Weaver at that layout with the plane over 4
+    entries against the same stream with the plane off."""
+    from repro_torch.configs.weaver_store import PAPER_DEPLOYMENT
+    from repro_torch.launch.mesh import make_columns_mesh
+    n_gk, n_shards = PAPER_DEPLOYMENT.n_gatekeepers, PAPER_DEPLOYMENT.n_shards
+    n_v = round(n_e * LIVEJOURNAL_VERTICES / LIVEJOURNAL_EDGES)
+    lists = plane_device_lists(device)
+    n_cards = torch.cuda.device_count() if device != "cpu" else 0
+    cut = ("none" if n_e == LIVEJOURNAL_EDGES
+           else f"edges {LIVEJOURNAL_EDGES:,} -> {n_e:,}")
+    four = ("4 real cards: not run (the CPU)" if device == "cpu" else
+            f"4 real cards: not run ({n_cards} card(s))" if n_cards < 4
+            else "4 real cards: run")
+    print(f"sharded plane: device lists "
+          f"{[(lb, [str(d) for d in ds]) for lb, ds in lists]} on "
+          f"{n_cards} card(s); {four}; PAPER_DEPLOYMENT's layout, "
+          f"{n_gk} gatekeepers (C {n_gk + 1}), {n_shards} shards; SNAP "
+          f"soc-LiveJournal1's size, {n_v:,} vertices and {n_e:,} edges "
+          f"spread evenly (cut: {cut})", flush=True)
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 6, size=n_gk + 1, dtype=np.int32)
+    q[0] = 1
+    q_b = q.copy()
+    q_b[1:] += 1
+    t0 = time.perf_counter()
+    cols = plane_columns(rng, n_gk, n_shards, n_v, n_e, q)
+    want = plain_masks(cols, q, lists[0][1][0])
+    print(f"sharded plane: columns filled and plain masks in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    planes, res = {}, {lb: {} for lb, _ in lists}
+    for rnd in ("cold", "changed"):
+        if rnd == "changed":
+            t0 = time.perf_counter()
+            changed = plane_changes(rng, cols, q)
+            want = plain_masks(cols, q, lists[0][1][0])
+            print(f"sharded plane: changes {changed} and plain masks in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for lb, devs in lists:
+            t0 = time.perf_counter()
+            if rnd == "cold":
+                planes[lb] = DeviceColumnPlane(n_gk, devices=devs)
+            plane = planes[lb]
+            plane.sync(cols)
+            sync_all(devs)
+            res[lb][f"sync_{rnd}_s"] = time.perf_counter() - t0
+            mvk.reset_launches()
+            plane.before_all(q)
+            launched = mvk.launches["before"]
+            if launched != (len(devs) if device != "cpu" else 0):
+                raise PhaseError(f"sharded plane {lb}: {launched} before "
+                                 f"launches for one before_all over "
+                                 f"{len(devs)} entries")
+            plane_check(f"{lb} {rnd}", plane, cols, want)
+            res[lb][f"launches_{rnd}"] = launched
+        stats = {lb: dict(p.stats) for lb, p in planes.items()}
+        if len({json.dumps(v, sort_keys=True) for v in stats.values()}) != 1:
+            raise PhaseError(f"sharded plane: stats differ across device "
+                             f"lists after the {rnd} round: {stats}")
+    first = planes[lists[0][0]]
+    print(f"sharded plane: masks == plain before for every shard and "
+          f"device list, cold and after the changes; stats "
+          f"{first.stats} on every list; B {first._cap:,}", flush=True)
+    for lb, devs in lists:
+        plane = planes.pop(lb)
+        bound, synced_bound = plane_bound_ms(plane)
+        r = res[lb]
+        r.update(plane_timings(plane, cols, (q, q_b), reps, device))
+        r.update(spd=plane._spd, bound_ms=bound, synced_bound_ms=synced_bound,
+                 plane_gb=sum(b.numel() * 4 for b in plane._dev) / 1e9,
+                 bits_mb=plane._host.numel() * 4 / 1e6)
+        print(f"sharded plane {lb}: spd {plane._spd}, plane "
+              f"{r['plane_gb']:.3f} GB, bits {r['bits_mb']:.3f} MB; rebuild "
+              f"{r['sync_cold_s']:.3f} s, changes synced in "
+              f"{r['sync_changed_s']:.3f} s; median ms of {reps}: "
+              f"before_all {r['before_all']:.4f} (launches + wait "
+              f"{r['launch_wait']:.4f}, bits copied back {r['copy']:.4f}, "
+              f"masks_for over {len(cols)} shards {r['masks']:.4f}); "
+              f"kernel device ms per card {json.dumps(r['device_ms'])}; "
+              f"bound {bound:.4f} ms on the busiest card (synced rows "
+              f"alone {synced_bound:.4f})", flush=True)
+        del plane
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    del cols
+    # 4 real cards where present, else cuda:0 listed 4 times
+    devs4 = (["cpu"] * 4 if device == "cpu" else make_columns_mesh(4)
+             if n_cards >= 4 else [torch.device("cuda", 0)] * 4)
+    dep = sharded_deployment(seed + 2, n_users, n_prog, n_tx, devs4,
+                             (n_gk, n_shards))
+    print(f"sharded plane deployment: {n_users} users, {dep['steps']} steps, "
+          f"plane over {[str(d) for d in devs4]} (spd {dep['spd']}, B "
+          f"{dep['cap']}) in {dep['secs']:.2f} s host wall clock (plane off "
+          f"on the CPU, concurrent: {dep['cpu_secs']:.2f} s); records == "
+          f"plane off; plane stats {dep['stats']}; launches "
+          f"{dep['counts']}", flush=True)
+    return {"lists": res, "deployment": dep}
+
+
+def small_stream(n_prog: int, n_tx: int) -> tuple:
+    """(node programs of each kind, transactions) of the host-global
+    deployment's stream, hence of phase 3d's deployment: a fifth of the
+    main deployment's."""
+    return max(1, n_prog // 5), max(1, n_tx // 5)
+
+
+def run_phase_3d(seed: int = 0, plane_edges: int = LIVEJOURNAL_EDGES,
+                 small_users: int = SMALL_USERS, n_prog: int = N_PROG,
+                 n_tx: int = N_TX, reps: int = REPS) -> dict:
+    """Phase 3d at main's sizes (its arguments are main's options, with
+    main's defaults), its host seconds printed after it."""
+    t0 = time.perf_counter()
+    res = phase_sharded_plane(seed, plane_edges, reps, small_users,
+                              *small_stream(n_prog, n_tx))
+    print(f"3d phase: {time.perf_counter() - t0:.2f} s host wall clock",
+          flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4705,16 +5097,19 @@ def main(argv=None) -> int:
     ap.add_argument("--users", type=int, default=100_000,
                     help="users of the main deployment (LiveJournal has "
                          "4.85M; ingest through the simulator bounds it)")
-    ap.add_argument("--small-users", type=int, default=20_000)
+    ap.add_argument("--small-users", type=int, default=SMALL_USERS)
     ap.add_argument("--kernel-n", type=int, default=LIVEJOURNAL_EDGES)
-    ap.add_argument("--n-prog", type=int, default=50,
+    ap.add_argument("--plane-edges", type=int, default=LIVEJOURNAL_EDGES,
+                    help="edges of phase 3d's sharded plane (vertices in "
+                         "LiveJournal's proportion)")
+    ap.add_argument("--n-prog", type=int, default=N_PROG,
                     help="node programs of each kind per deployment")
-    ap.add_argument("--n-tx", type=int, default=300)
+    ap.add_argument("--n-tx", type=int, default=N_TX)
     ap.add_argument("--serve-requests", type=int, default=20_000,
                     help="requests of the main deployment's first serving "
                          "loop (the second takes a fifth, the open loop a "
                          "quarter)")
-    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=REPS)
     ap.add_argument("--mp-n", type=int, default=OGB_PRODUCTS[0],
                     help="nodes of the full-size segment_mp case "
                          "(ogb-products)")
@@ -4740,6 +5135,7 @@ def main(argv=None) -> int:
                     default="full", help="sizes of the distribution phase "
                     "7a-7d (DIST_SIZES)")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4807,14 +5203,17 @@ def main(argv=None) -> int:
         raise PhaseError(f"gnn: segment_mp orders {gnn_counts}, expected "
                          f"{want}")
     del w
+    small_prog, small_tx = small_stream(args.n_prog, args.n_tx)
     small_counts, *_ = deployment("host-global", args.seed + 1,
                                   args.small_users, plane=False,
-                                  n_prog=max(1, args.n_prog // 5),
-                                  n_tx=max(1, args.n_tx // 5), oracle=True)
+                                  n_prog=small_prog, n_tx=small_tx,
+                                  oracle=True)
     t0 = time.perf_counter()
     phase_entry_points()
     print(f"entry points phase: {time.perf_counter() - t0:.2f} s host wall "
           f"clock", flush=True)
+    run_phase_3d(args.seed, args.plane_edges, args.small_users, args.n_prog,
+                 args.n_tx, args.reps)
     for label, counts in (("main", main_counts),
                           ("host-global", small_counts)):
         missing = [k for k in ("before", "before_pairs") if not counts[k]]
@@ -4891,6 +5290,8 @@ def main(argv=None) -> int:
                  "launches": rec["launches"],
                  "max_abs_err": bag_timing["max_abs_err"],
                  **bag_timing["runs"]["train_batch sum"]})
+    print(f"chip_smoke: {time.perf_counter() - t_main:.2f} s host wall "
+          f"clock from main's start", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -313,7 +313,7 @@ class SnapshotEngine:
         self.weaver = weaver
         self.n_gk = weaver.cfg.n_gatekeepers
         self.c = self.n_gk + 1
-        self.device = weaver.cfg.device
+        self.device = weaver.device
         self._valid = False
         # device-resident column plane (repro_torch.dist.columns): cold
         # builds take their create/delete masks from ONE launch over the

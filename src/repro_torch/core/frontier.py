@@ -1147,7 +1147,7 @@ def run_local(weaver, name: str, entries, at: Stamp,
                 plan, kind = maintain_plan(plans.get(sid), cols, at,
                                            sh.n_gk, rb,
                                            allow_delta=plan_delta,
-                                           device=weaver.cfg.device)
+                                           device=weaver.device)
                 plans[sid] = plan
                 if kind == "delta":
                     stats["plan_delta"] += 1

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -269,14 +269,27 @@ class WeaverConfig:
     cost: CostModel = field(default_factory=CostModel)
     network: NetworkModel = field(default_factory=NetworkModel)
     heartbeat_period: float = 5e-3
-    device: str = "cuda"         # where every batched stamp compare runs
-    #                              (the CUDA kernels; "cpu" runs their
-    #                              plain PyTorch versions)
+    device: Union[str, Sequence[str]] = "cuda"  # where every batched
+    #                              stamp compare runs (the CUDA kernels;
+    #                              "cpu" runs their plain PyTorch
+    #                              versions).  The column plane spans
+    #                              make_columns_mesh(device=device): every
+    #                              card for "cuda".  A list of devices is
+    #                              the plane's device list, and its first
+    #                              entry runs everything else.
 
 
 class Weaver:
     def __init__(self, cfg: WeaverConfig = WeaverConfig()):
-        check_device(cfg.device)
+        if isinstance(cfg.device, str):
+            self.device = cfg.device
+            plane_devices = None
+        else:
+            plane_devices = list(cfg.device)
+            if not plane_devices:
+                raise ValueError("WeaverConfig.device: an empty device list")
+            self.device = str(plane_devices[0])
+        check_device(self.device)
         self.cfg = cfg
         self.sim = Simulator(seed=cfg.seed, network=cfg.network)
         if cfg.trace_sample_rate > 0:
@@ -291,15 +304,18 @@ class Weaver:
         self.prop_vals = PropIntern()
         self.store = BackingStore(self.sim, cfg.n_shards, intern=self.intern,
                                   wal_checkpoint_every=cfg.wal_checkpoint_every,
-                                  device=cfg.device)
+                                  device=self.device)
         self.oracle = OracleServer(self.sim)
         self.manager = ClusterManager(self.sim, cfg.heartbeat_period)
         self.manager.weaver = self
         self.device_plane = None
         if cfg.device_shard_columns:
             from ..dist.columns import DeviceColumnPlane
-            self.device_plane = DeviceColumnPlane(cfg.n_gatekeepers,
-                                                  device=cfg.device)
+            from ..launch.mesh import make_columns_mesh
+            self.device_plane = DeviceColumnPlane(
+                cfg.n_gatekeepers,
+                devices=(make_columns_mesh(device=self.device)
+                         if plane_devices is None else plane_devices))
         self.gatekeepers: List[Gatekeeper] = [
             Gatekeeper(self.sim, g, cfg.n_gatekeepers, self.store, self.oracle,
                        cfg.cost, cfg.tau, cfg.tau_nop,
@@ -325,7 +341,7 @@ class Weaver:
                   ack_applies=cfg.read_your_writes,
                   device_plane=self.device_plane,
                   prop_vals=self.prop_vals,
-                  device=cfg.device)
+                  device=self.device)
             for s in range(cfg.n_shards)
         ]
         for gk in self.gatekeepers:
@@ -352,7 +368,7 @@ class Weaver:
                                  coalesce=cfg.frontier_coalesce,
                                  plan_cache_entries=cfg.plan_cache_entries,
                                  prop_vals=self.prop_vals,
-                                 device=cfg.device)
+                                 device=self.device)
                     for r in range(cfg.n_replicas)]
             for reps in self.replicas.values():
                 for rep in reps:
@@ -743,7 +759,7 @@ class Weaver:
                        device_plane=self.device_plane,
                        incarnation=inc,
                        prop_vals=self.prop_vals,
-                       device=self.cfg.device)
+                       device=self.device)
             nu.pod = old.pod
             nu.replicated = old.replicated or self.cfg.n_replicas > 0
             ops = self.store.recover_shard(sid, use_wal=self.cfg.wal_replay)

@@ -41,7 +41,7 @@ def test_plane_masks_and_scatter_updates():
     from repro_torch.dist.columns import DeviceColumnPlane
 
     parts = [MVGraphPartition(2) for _ in range(2)]
-    plane = DeviceColumnPlane(2, device="cpu")
+    plane = DeviceColumnPlane(2, devices=["cpu"])
     clk = [0, 0]
 
     def nxt(g):
@@ -74,6 +74,7 @@ def test_plane_masks_and_scatter_updates():
         p.columns.compact()
     check(pack(Stamp(0, tuple(c + 2 for c in clk), 0, 0), 2))
     assert plane.stats["block_uploads"] == 2
-    assert isinstance(plane._blocks, torch.Tensor)
-    assert plane._blocks.dtype == torch.int32
-    assert plane._blocks.shape[:2] == (2, 4)
+    (blocks,) = plane._dev
+    assert isinstance(blocks, torch.Tensor)
+    assert blocks.dtype == torch.int32
+    assert blocks.shape[:2] == (2, 4)
