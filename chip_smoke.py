@@ -96,7 +96,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    host-global deployment's users with the plane over 4 entries (4 cards
    where present, else ``cuda:0`` 4 times) runs the seeded stream while
    a worker runs it on the CPU with the plane off: the records must be
-   identical.
+   identical and every rebuild of its plane keeps the live partitions at
+   their own size (as in 3e).
+3e. The failover half (``phase_failover``) at the paper deployment's
+   layout with the column plane over every card, two runs of the phase-3
+   stream at 5,000 users, each while a worker runs it on the CPU with the
+   plane off: (A) 2 change-feed replicas a shard in 2 pods, 0.5 ms read
+   windows with alias, adaptive admission, causal tracing of every 10th
+   request and the metrics timeline, a random plan of change-feed faults,
+   and two primaries killed halfway through (replica promotion); (B) no
+   replicas, group commit, WAL replay, a fault plan with a torn WAL tail,
+   a gatekeeper lost after the WAL and two shards dying mid-apply, under
+   a burst of 64 transactions.  Records, the Chrome trace and the
+   metrics export must equal the twin's; the trace invariants must be
+   clean; every node program is re-run by ``frontier.run_local`` at its
+   stamp in its callback (the same findings on card and twin, none but
+   the reference's replica-served clustering answers); every acked
+   transaction of B's burst is read back and each shard's WAL replay
+   equals the store walk; the run's counters (replica reads, promotions,
+   cold resyncs, replayed WAL ops, client retries) are non-zero; each
+   rebuild of the plane keeps exactly the live partitions at B =
+   pow2(max(min_block, 1.25 x the largest live table)), with masks equal
+   to the plain ``before``; ``before`` launches at least once per entry
+   and ``before_all``, ``before_pairs`` and ``visibility`` launch.
 2c. ``flash_attention`` against its plain version in fp32 on the card,
    each of its three variants (bf16 ``wgmma`` prefill, split-KV decode,
    fp32 CUDA-core prefill) at every kind of case: the reference tests'
@@ -149,11 +171,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step share and the card's update against AdamW in fp64 must agree.
 6b. gemma3-1b at full width and depth, bf16 parameters with fp32
    moments, loss_chunks 16, remat per layer, seq 4,096 x batch 8
-   (train_4k's batch cut from 256), 10 steps of Zipfian tokens with a
-   checkpoint every 5 in a temporary directory: the loss must fall; ms
-   per step, tokens/s, peak memory, checkpoint bytes and save seconds.
-   Then the step-10 save is torn, ``on_failure`` restores step 5 and
-   steps 6-10 rerun: their losses must equal the uninterrupted run's.
+   (train_4k's batch cut from 256), 6 steps of Zipfian tokens (the
+   script's time limit) with a checkpoint at step 5 and at the end in a
+   temporary directory: the loss must fall; ms per step, tokens/s, peak
+   memory, checkpoint bytes and save seconds.  Then the step-6 save is
+   torn, ``on_failure`` restores step 5 and step 6 reruns: its loss must
+   equal the uninterrupted run's.
    Then lm_loss under no_grad with the flash seam on and off must agree,
    with 26 flash_attention launches, each held against its plain version
    as phase 4 holds them.  Last, one more step under
@@ -1723,22 +1746,34 @@ def serve_loops(n: int) -> list:
 
 def make_stream(seed: int, n_users: int, avg_degree: int = 14,
                 n_tx: int = 300, n_prog: int = 50, chunk: int = 512,
-                kill: str = None, gc_period: float = 0.05,
-                serve_requests: int = 0) -> list:
+                kill=None, gc_period: float = 0.05,
+                serve_requests: int = 0, faults: int = 0,
+                kill_mid: bool = False) -> list:
     """A seeded op stream: bulk load in ``chunk``-op transactions, then a
     shuffled mix of ``n_tx`` small transactions and ``n_prog`` of each
     node program, with GC, async submissions, snapshots, the serving
     steps of :func:`serve_loops` (``serve_requests`` > 0: TAO requests
     from ``synth.tao_workload`` on live vertices, through the package's
-    ``GraphQueryServer``) and (optionally) a shard kill plus promotion.
-    Edges are named by creation index."""
+    ``GraphQueryServer``) and (optionally) shard kills plus promotion:
+    ``kill`` is a shard's name or a tuple of names, killed one after
+    another at the end, or with ``kill_mid`` halfway through the mix,
+    before its GC pass.  ``faults`` > 0 holds a fault plan's injector
+    disarmed over the bulk load, then arms it and submits a burst of
+    ``faults`` self-contained transactions (:func:`unique_tx`) before the
+    mix, after which every shard is rebuilt by WAL replay and by the
+    store walk (:func:`replay_diffs`: a torn tail is still on the log
+    then); the plan stays armed to the end.  Edges are named by creation
+    index."""
     rng = np.random.default_rng(seed)
     users = [f"u{i}" for i in range(n_users)]
     edges = synth.social_graph(rng, n_users, avg_degree)
-    steps = [("tx", [("cv", v) for v in users[i:i + chunk]])
-             for i in range(0, n_users, chunk)]
+    steps = [("fault", False)] if faults else []
+    steps += [("tx", [("cv", v) for v in users[i:i + chunk]])
+              for i in range(0, n_users, chunk)]
     steps += [("tx", [("ce", s, d) for s, d in edges[i:i + chunk]])
               for i in range(0, len(edges), chunk)]
+    if faults:
+        steps += [("fault", True), ("unique", faults), ("replay",)]
     n_edges = len(edges)
     n_new = 0
     deleted = set()      # program roots avoid these: a program whose roots
@@ -1784,12 +1819,20 @@ def make_stream(seed: int, n_users: int, avg_degree: int = 14,
                 ops.append(("dv", vid))
         return ("tx", ops)
 
+    def kills() -> list:
+        out = []
+        for name in ((kill,) if isinstance(kill, str) else kill or ()):
+            out += [("kill", name), prog("traverse"), prog("count_edges"),
+                    ("snap", True)]
+        return out
+
     kinds = ["tx"] * n_tx + [p for p in PROGRAMS for _ in range(n_prog)]
     mixed = []
     for k in rng.permutation(len(kinds)).tolist():
         mixed.append(tx() if kinds[k] == "tx" else prog(kinds[k]))
     half = len(mixed) // 2
     steps += mixed[:half]
+    steps += kills() if kill_mid else []
     steps += [("settle", 1.2 * gc_period),   # a GC pass runs
               prog("count_edges"), ("snap", False),
               ("async", [prog(p)[1:] for p in PROGRAMS])]
@@ -1799,10 +1842,57 @@ def make_stream(seed: int, n_users: int, avg_degree: int = 14,
              for loop, arg, n, read_frac in serve_loops(serve_requests)]
     steps += [("serve", loops)] if loops else []
     steps += [prog("count_edges"), ("snap", True)]
-    if kill is not None:
-        steps += [("kill", kill), prog("traverse"), prog("count_edges"),
-                  ("snap", True)]
-    return steps
+    return steps if kill_mid else steps + kills()
+
+
+UNIQUE_HUB = "u0"    # make_stream never deletes it
+
+
+def unique_tx(w, i: int):
+    """(vertex, tx): the ``i``-th transaction of a fault burst, as the
+    reference's fault battery writes them: a vertex of its own, an edge
+    to the hub and a property, so each one's effects can be read back."""
+    v = f"x{i}"
+    tx = w.begin_tx()
+    tx.create_vertex(v)
+    tx.create_edge(v, UNIQUE_HUB)
+    tx.set_vertex_prop(v, "score", float(i))
+    return v, tx
+
+
+def acked_lost(w, recs: list) -> list:
+    """What a run lost of its fault bursts' acknowledged transactions:
+    each acked vertex must be live in the store with its score and its
+    edge to the hub, and held by its shard when that shard is alive; no
+    transaction may have run twice (an "exists" abort) and an error may
+    only be the retry budget's.  [] when nothing was lost."""
+    bad = []
+    for rec in recs:
+        if rec[0] != "unique":
+            continue
+        if len(rec[2]) != rec[1]:
+            bad.append(f"{rec[1] - len(rec[2])} of {rec[1]} client "
+                       f"sessions never resolved")
+        for v, ok, err, _, _ in rec[2]:
+            if "exists" in (err or ""):
+                bad.append(f"{v}: ran twice ({err})")
+            elif not ok and err != "client retry budget exhausted":
+                bad.append(f"{v}: unexplained abort {err!r}")
+            if not ok:
+                continue
+            sv = w.store.vertices.get(v)
+            if sv is None or sv.delete_ts is not None:
+                bad.append(f"acked {v} lost from the store")
+                continue
+            if sv.props["score"][-1][0] != float(v[1:]):
+                bad.append(f"acked {v}: score {sv.props['score'][-1][0]}")
+            if not any(dst == UNIQUE_HUB and dts is None
+                       for dst, _, dts in sv.edges.values()):
+                bad.append(f"acked {v}: edge to the hub lost")
+            sh = w.shards[w.store.place(v)]
+            if sh.alive and v not in sh.partition.vertices:
+                bad.append(f"acked {v} missing at {sh.name}")
+    return bad
 
 
 def _stamp(s):
@@ -1868,15 +1958,17 @@ def serve_loop(server, w, loop_ops: tuple, first: list) -> tuple:
 
 
 def run_stream(core, analytics_mod, cfg, steps: list, device=None,
-               around_serve=None) -> list:
+               around_serve=None, on_weaver=None) -> list:
     """Run ``steps`` through a fresh ``core.Weaver(cfg)`` and return one
     comparable record per step plus the final counters.  ``core`` and
     ``analytics_mod`` are the package's modules, and serving steps go
     through that package's ``runtime.GraphQueryServer``, so the same
     driver runs the port and (in the tests) the JAX reference.
     ``around_serve``, a context manager factory, is entered around each
-    serving step."""
+    serving step; ``on_weaver(w)`` is called once the Weaver is made."""
     w = core.Weaver(cfg)
+    if on_weaver is not None:
+        on_weaver(w)
     server_cls = importlib.import_module(
         core.__name__.split(".")[0] + ".runtime").GraphQueryServer
     server = server_cls(w)
@@ -1927,6 +2019,24 @@ def run_stream(core, analytics_mod, cfg, steps: list, device=None,
         elif kind == "settle":
             w.settle(step[1])
             out.append(("settle", w.sim.now))
+        elif kind == "fault":
+            if w.sim.fault is not None:
+                (w.sim.fault.arm if step[1] else w.sim.fault.disarm)()
+        elif kind == "replay":
+            out.append(("replay", replay_diffs(w),
+                        w.sim.counters.wal_torn_truncated))
+        elif kind == "unique":
+            box = {}
+            for i in range(step[1]):
+                v, tx = unique_tx(w, i)
+                w.submit_tx(tx, lambda r, v=v: box.__setitem__(v, r))
+            deadline = w.sim.now + 60.0
+            while len(box) < step[1] and w.sim.pending() \
+                    and w.sim.now < deadline:
+                w.sim.run(until=min(deadline, w.sim.now + 5e-3))
+            out.append(("unique", step[1],
+                        [(v, r.ok, r.error, r.retries, r.latency)
+                         for v, r in sorted(box.items())]))
         elif kind == "kill":
             w.kill(step[1])
             w.settle(0.1)            # heartbeat loss -> promote_backup
@@ -2034,7 +2144,7 @@ def plane_mask_forms(plane, reps: int = 20) -> dict:
     rows = [b.view(-1, plane.c) for b in plane._dev]
     s_, t_, cap = plane.n_dev * plane._spd, TABLES, plane._cap
     # (block, table, synced rows): tables 0, 1 hold vertices, 2, 3 edges
-    spans = [(bi, t, cur[t // 2]) for bi, cur in enumerate(plane._consumed)
+    spans = [(bi, t, cur[t // 2]) for bi, _, cur in plane.live_blocks()
              for t in range(t_)]
 
     def form(bits: bool):
@@ -2078,13 +2188,14 @@ def plane_mask_forms(plane, reps: int = 20) -> dict:
 
 
 def run_on(device, seed: int, n_users: int, plane: bool, n_prog: int,
-           n_tx: int, serve_requests: int = 0, layout: tuple = (2, 4)):
+           n_tx: int, serve_requests: int = 0, layout: tuple = (2, 4),
+           on_weaver=None):
     """One run of the deployment's seeded stream on ``device``: (steps,
     records, launch counts of this run, host seconds, entry-point line,
     the serving steps' figures (``serve_clock``), the Weaver).
     ``device`` may be a device list: the column plane's, whose first
     entry runs the rest (``WeaverConfig.device``); ``layout`` is
-    (gatekeepers, shards)."""
+    (gatekeepers, shards); ``on_weaver`` goes to ``run_stream``."""
     lead = device if isinstance(device, str) else str(device[0])
     steps = make_stream(seed, n_users, n_tx=n_tx, n_prog=n_prog,
                         gc_period=GC_PERIOD, serve_requests=serve_requests)
@@ -2100,7 +2211,8 @@ def run_on(device, seed: int, n_users: int, plane: bool, n_prog: int,
     with BoundaryClock() as bc:
         recs, w = run_stream(core, analytics, cfg, steps, device=lead,
                              around_serve=lambda: serve_clock(lead,
-                                                              serving))
+                                                              serving),
+                             on_weaver=on_weaver)
         sync_all(w.device_plane.devices if w.device_plane else [lead])
     secs = time.perf_counter() - t0
     return steps, recs, dict(mvk.launches), secs, bc.line(), serving, w
@@ -2350,7 +2462,7 @@ def plane_bound_ms(plane) -> tuple:
     cards = {}
     for d in plane.devices:
         cards[d] = cards.get(d, 0.0) + per_entry
-    synced = sum(2 * (cur[0] + cur[1]) for cur in plane._consumed)
+    synced = sum(2 * (cur[0] + cur[1]) for _, _, cur in plane.live_blocks())
     return (max(cards.values()) / HBM_BYTES_PER_S * 1e3,
             synced * (plane.c * 4 + 1 / 8) / HBM_BYTES_PER_S * 1e3)
 
@@ -2417,16 +2529,21 @@ def sharded_deployment(seed: int, n_users: int, n_prog: int, n_tx: int,
     """A Weaver at ``layout`` with the column plane over ``devices`` runs
     the seeded stream on the card while a worker process runs the same
     stream on the CPU with the plane off; the records (results, counters,
-    snapshot arrays) must be identical and the plane must have launched
-    on every entry."""
+    snapshot arrays) must be identical, the plane must have launched on
+    every entry, and every rebuild must pass :class:`PlaneAudit`."""
     args = (seed, n_users, False, n_prog, n_tx, 0, layout)
+    audit = PlaneAudit()
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
         twin = pool.submit(cpu_twin, *args)
         steps, recs, counts, secs, line, _, w = run_on(
-            devices, seed, n_users, True, n_prog, n_tx, 0, layout)
+            devices, seed, n_users, True, n_prog, n_tx, 0, layout,
+            on_weaver=audit.attach)
         (n_steps, cpu_recs, cpu_counts, cpu_secs, *_) = twin.result()
     plane = w.device_plane
+    if audit.bad or not audit.masks_checked:
+        raise PhaseError(f"sharded plane deployment: plane audit "
+                         f"{audit.bad[:5]} ({audit.masks_checked} checked)")
     bad = diff_records(recs, cpu_recs)
     if bad:
         raise PhaseError("sharded plane deployment: plane over "
@@ -2438,9 +2555,27 @@ def sharded_deployment(seed: int, n_users: int, n_prog: int, n_tx: int,
                            >= plane.n_dev * plane.stats["launches"]):
         raise PhaseError(f"sharded plane deployment: plane {plane.n_dev} "
                          f"entries, stats {plane.stats}, launches {counts}")
-    return {"steps": len(steps), "secs": secs, "cpu_secs": cpu_secs,
+    # the deployment's plane as it ends: before_all's median host ms over
+    # 20 calls at two alternating queries (after 3 warm-ups), beside its
+    # bound (each entry's blocks read once, its bits written once)
+    q = np.frombuffer(plane._masks_q, np.int32).copy()
+    q_b = q.copy()
+    q_b[1:] += 1
+    each = []
+    for i in range(23):
+        t0 = time.perf_counter()
+        plane.before_all((q, q_b)[i % 2])
+        if i >= 3:
+            each.append((time.perf_counter() - t0) * 1e3)
+    return {"steps": len(steps), "secs": secs - audit.secs,
+            "audit_secs": audit.secs, "cpu_secs": cpu_secs,
             "counts": counts, "stats": dict(plane.stats), "line": line,
-            "spd": plane._spd, "cap": plane._cap, "entries": plane.n_dev}
+            "spd": plane._spd, "cap": plane._cap, "entries": plane.n_dev,
+            "rebuilds": audit.rebuilds,
+            "reference_cap": reference_cap(audit.rebuilds, plane.min_block),
+            "before_all_ms": statistics.median(each),
+            "bound_ms": plane_bound_ms(plane)[0],
+            "plane_gb": sum(b.numel() * 4 for b in plane._dev) / 1e9}
 
 
 def phase_sharded_plane(seed: int, n_e: int, reps: int, n_users: int,
@@ -2543,10 +2678,18 @@ def phase_sharded_plane(seed: int, n_e: int, reps: int, n_users: int,
                              (n_gk, n_shards))
     print(f"sharded plane deployment: {n_users} users, {dep['steps']} steps, "
           f"plane over {[str(d) for d in devs4]} (spd {dep['spd']}, B "
-          f"{dep['cap']}) in {dep['secs']:.2f} s host wall clock (plane off "
-          f"on the CPU, concurrent: {dep['cpu_secs']:.2f} s); records == "
+          f"{dep['cap']:,}) in {dep['secs']:.2f} s host wall clock (plane off "
+          f"on the CPU, concurrent: {dep['cpu_secs']:.2f} s; the plane "
+          f"audit's mask checks apart, {dep['audit_secs']:.2f} s); records == "
           f"plane off; plane stats {dep['stats']}; launches "
-          f"{dep['counts']}", flush=True)
+          f"{dep['counts']}; every rebuild (blocks, B, largest live table) "
+          f"{dep['rebuilds']} kept the live partitions at pow2(max(min_block, "
+          f"1.25 x the largest)), masks == the plain before (the "
+          f"reference's rule, from the current B, would end at B "
+          f"{dep['reference_cap']:,}); the plane at "
+          f"the end, {dep['plane_gb']:.4f} GB: before_all median "
+          f"{dep['before_all_ms']:.4f} ms of 20 (bound "
+          f"{dep['bound_ms']:.4f} ms on the busiest card)", flush=True)
     return {"lists": res, "deployment": dep}
 
 
@@ -2566,6 +2709,496 @@ def run_phase_3d(seed: int = 0, plane_edges: int = LIVEJOURNAL_EDGES,
     res = phase_sharded_plane(seed, plane_edges, reps, small_users,
                               *small_stream(n_prog, n_tx))
     print(f"3d phase: {time.perf_counter() - t0:.2f} s host wall clock",
+          flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: the failover half (replicas and promotion, recovery under
+# injected faults) with the column plane over every card
+# ---------------------------------------------------------------------------
+
+def live_cap(rows: int, min_block: int) -> int:
+    """The column plane's B after a rebuild: pow2(max(min_block, 1.25 x
+    the largest live table))."""
+    n = max(min_block, rows + rows // 4)
+    return 1 << (n - 1).bit_length()
+
+
+def reference_cap(rebuilds: list, min_block: int) -> int:
+    """B that the reference's growth rule (each rebuild starts its size
+    at the current B) would reach over the same rebuilds, from the
+    (blocks, B, largest live table) that :class:`PlaneAudit` records."""
+    cap = 0
+    for _, _, rows in rebuilds:
+        cap = live_cap(max(cap, rows), min_block)
+    return cap
+
+
+class PlaneAudit:
+    """Holds a Weaver's column plane, for the whole of a run, to the
+    live-size rule after every rebuild (every block is a current shard's
+    partition, once; spd = ceil(blocks / entries); B = :func:`live_cap`
+    of the largest live table) and, at the first ``before_all`` after
+    each rebuild, every block's four masks to the plain ``before`` over
+    its synced rows, bit for bit.  ``attach`` is a ``run_stream``
+    ``on_weaver`` hook; ``bad`` lists what failed, ``secs`` the host
+    seconds of the mask checks (kept apart from the run's)."""
+
+    def __init__(self):
+        self.rebuilds = []        # (blocks, B, largest live table)
+        self.masks_checked = 0
+        self.bad = []
+        self.secs = 0.0
+
+    def attach(self, w) -> None:
+        plane = w.device_plane
+        if plane is None:
+            return
+        rebuild, before_all = plane._rebuild, plane.before_all
+        due = []
+
+        def audited_rebuild():
+            rebuild()
+            cols = plane._cols
+            rows = max((max(c.n_v, c.n_e) for c in cols if c is not None),
+                       default=0)
+            blocks = len(cols)
+            self.rebuilds.append((blocks, plane._cap, rows))
+            live = {id(sh.partition.columns) for sh in w.shards}
+            if any(c is None or id(c) not in live for c in cols) \
+                    or len({id(c) for c in cols}) != blocks:
+                self.bad.append(f"rebuild {len(self.rebuilds)}: {blocks} "
+                                f"blocks, not each a live partition once")
+            if plane._cap != live_cap(rows, plane.min_block) \
+                    or plane._spd != max(1, -(-blocks // plane.n_dev)):
+                self.bad.append(f"rebuild {len(self.rebuilds)}: B "
+                                f"{plane._cap}, spd {plane._spd} for "
+                                f"{blocks} blocks, largest table {rows}")
+            due.append(True)
+
+        def audited_before_all(q):
+            before_all(q)
+            if due:
+                due.clear()
+                t0 = time.perf_counter()
+                self._masks(plane, np.asarray(q, np.int32))
+                self.secs += time.perf_counter() - t0
+
+        plane._rebuild = audited_rebuild
+        plane.before_all = audited_before_all
+
+    def _masks(self, plane, q: np.ndarray) -> None:
+        dev = plane.devices[0]
+        qd = torch.from_numpy(q).to(dev)
+        for bi, c, (nv, ne, *_) in plane.live_blocks():
+            for t, (m, tbl, n) in enumerate(zip(
+                    plane.masks_for(c), (c.v_create, c.v_delete, c.e_create,
+                                         c.e_delete), (nv, nv, ne, ne))):
+                want = mvref.before(torch.from_numpy(
+                    np.ascontiguousarray(tbl.view()[:n])).to(dev),
+                    qd).cpu().numpy()
+                if not np.array_equal(m, want):
+                    self.bad.append(f"rebuild {len(self.rebuilds)}: block "
+                                    f"{bi} table {t} masks != plain before")
+        self.masks_checked += 1
+
+
+class ReadChecker:
+    """Every node program of a run, the replica-served ones among them,
+    re-executed in its callback on the primaries by
+    ``frontier.run_local`` at the stamp it was answered at, and compared
+    (the reference replica battery's bit-identity check: later, GC may
+    have pruned the versions that stamp needs).  A program is
+    replica-served when a replica executed any of its deliveries.  The
+    re-runs are kept apart from the run: their kernel launches are taken
+    back out of the wrappers' counts into ``launches``, and their host
+    seconds go to ``secs``.  ``attach`` is a ``run_stream`` ``on_weaver``
+    hook."""
+
+    def __init__(self):
+        self.checked = 0
+        self.unresolved = 0
+        self.mismatches = []      # (name, entries, stamp, replica-served)
+        self.launches = dict.fromkeys(mvk.launches, 0)
+        self.secs = 0.0
+        self._replica_pids = set()
+        self._finishing = None    # the program whose callback is running
+
+    def unexplained(self, cfg) -> list:
+        """The mismatches other than the reference's own (ROADMAP §3):
+        clustering answered by a replica under aliased read windows."""
+        aliased = cfg.n_replicas > 0 and cfg.read_window_alias
+        return [m for m in self.mismatches
+                if not (aliased and m[0] == "clustering" and m[3])]
+
+    def attach(self, w) -> None:
+        frontier = importlib.import_module(
+            type(w).__module__.rsplit(".", 1)[0] + ".frontier")
+        submit, finish = w.submit_program, w.coordinator._maybe_finish
+
+        def maybe_finish(prog_id):
+            self._finishing = prog_id
+            try:
+                finish(prog_id)
+            finally:
+                self._finishing = None
+
+        def served_by(rep):
+            run = rep._exec_prog
+
+            def exec_prog(prog_id, *a, **kw):
+                self._replica_pids.add(prog_id)
+                return run(prog_id, *a, **kw)
+            rep._exec_prog = exec_prog
+
+        for reps in w.replicas.values():
+            for rep in reps:
+                served_by(rep)
+
+        def submit_program(name, entries, callback, *a, **kw):
+            def checked(r, s, lat):
+                if r is None:           # a surfaced retry-budget error
+                    self.unresolved += 1
+                else:
+                    replica = self._finishing in self._replica_pids
+                    saved = dict(mvk.launches)
+                    t0 = time.perf_counter()
+                    want, _ = frontier.run_local(w, name, entries, s)
+                    self.secs += time.perf_counter() - t0
+                    for k, v in saved.items():
+                        self.launches[k] += mvk.launches[k] - v
+                        mvk.launches[k] = v
+                    self.checked += 1
+                    if r != want:
+                        self.mismatches.append(
+                            (name, entries, _stamp(s), replica))
+                callback(r, s, lat)
+            return submit(name, entries, checked, *a, **kw)
+
+        w.coordinator._maybe_finish = maybe_finish
+        w.submit_program = submit_program
+
+
+FAILOVER_USERS = 5_000
+FAILOVER_SERVE = 1_000                    # the first serving loop's requests
+FAILOVER_KILLS = ("shard1", "shard5")     # run A's primaries, one a pod
+FAILOVER_BURST = 64                       # run B's fault burst
+
+
+def failover_plan(fi, label: str, seed: int, n_gk: int, n_shards: int):
+    """Run ``label``'s fault plan from the package's ``faultinject``
+    module ``fi`` (a plan counts its firings, so each run makes its own):
+    A, random faults on the replicas' change feed only; B, a torn WAL
+    tail, a gatekeeper dying after the WAL's durability point (lost
+    acks), and two shards dying mid-apply (WAL replay)."""
+    if label == "A":
+        return fi.FaultPlan.random(seed, n_gk, n_shards, n_crashes=0,
+                                   msg_faults=False, replica_faults=True)
+    a = fi.FaultAction
+    return fi.FaultPlan([
+        a("torn", point="mid_wal", target="gk1", after=0, arg=1),
+        a("crash", point="post_wal", target=f"gk{n_gk - 1}", after=2),
+        a("crash", point="mid_shard_apply", target="shard2", after=3),
+        a("crash", point="mid_shard_apply", target=f"shard{n_shards - 2}",
+          after=6)])
+
+
+def failover_config(core_mod, label: str, seed: int, layout: tuple, device,
+                    plane: bool):
+    """Run ``label``'s ``WeaverConfig`` (the module note says what each
+    run holds) at ``layout`` (gatekeepers, shards)."""
+    fi = importlib.import_module(core_mod.__name__ + ".faultinject")
+    kw = dict(n_gatekeepers=layout[0], n_shards=layout[1], seed=seed,
+              device_shard_columns=plane, write_group_commit=1e-3,
+              gc_period=GC_PERIOD, wal_checkpoint_every=WAL_CHECKPOINT_EVERY,
+              fault_plan=failover_plan(fi, label, seed, *layout),
+              read_retry_timeout=20e-3)
+    if device is not None:
+        kw["device"] = device
+    if label == "A":
+        kw.update(n_replicas=2, pods=2, read_group_commit=0.5e-3,
+                  read_window_alias=True, adaptive_admission=True,
+                  trace_sample_rate=0.1, metrics_period=5e-3,
+                  replica_promotion=True)
+    else:
+        kw.update(wal_replay=True, trace_sample_rate=0.1)
+    return core_mod.WeaverConfig(**kw)
+
+
+def failover_stream(label: str, seed: int, n_users: int, n_prog: int,
+                    n_tx: int, serve_requests: int) -> list:
+    """Run ``label``'s op stream: the phase-3 stream with A's two kills
+    (replica promotions) or B's fault burst."""
+    return make_stream(seed, n_users, n_tx=n_tx, n_prog=n_prog,
+                       gc_period=GC_PERIOD, serve_requests=serve_requests,
+                       kill=FAILOVER_KILLS if label == "A" else None,
+                       kill_mid=True,
+                       faults=FAILOVER_BURST if label == "B" else 0)
+
+
+def run_failover(device, label: str, seed: int, n_users: int, n_prog: int,
+                 n_tx: int, serve_requests: int, layout: tuple) -> dict:
+    """One run of phase 3e: ``device`` None is the plane-off CPU twin,
+    else the plane's device (list); records, the path's launches and host
+    seconds (the read checker's re-runs and the plane audit's mask checks
+    taken out, and given apart), the Chrome trace, the metrics export,
+    the trace invariants, the acked transactions lost, the read checker's
+    and the plane audit's findings."""
+    from repro_torch.core import obs
+    steps = failover_stream(label, seed, n_users, n_prog, n_tx,
+                            serve_requests)
+    cfg = failover_config(core, label, seed, layout,
+                          "cpu" if device is None else device,
+                          device is not None)
+    audit, reads = PlaneAudit(), ReadChecker()
+
+    def hooks(w):
+        audit.attach(w)
+        reads.attach(w)
+
+    lead = "cpu" if device is None else (
+        device if isinstance(device, str) else str(device[0]))
+    mvk.reset_launches()
+    t0 = time.perf_counter()
+    recs, w = run_stream(core, analytics, cfg, steps, device=lead,
+                         on_weaver=hooks)
+    sync_all(w.device_plane.devices if w.device_plane else [lead])
+    secs = time.perf_counter() - t0 - reads.secs - audit.secs
+    tr = w.sim.tracer
+    plane = w.device_plane
+    # every shard's WAL replayed (B's torn tail truncated) == the walk
+    replay = replay_diffs(w)
+    recs[-1] = ("counters", w.counters())
+    return {"steps": len(steps), "recs": recs, "secs": secs,
+            "replay": replay,
+            "counts": dict(mvk.launches),
+            "trace": obs.to_chrome_trace(tr.spans),
+            "metrics": w.sim.metrics.export(),
+            "invariants": {k: len(v) for k, v in
+                           obs.run_invariant_checks(tr).items()},
+            "lost": acked_lost(w, recs),
+            "reads": (reads.checked, reads.unresolved, reads.mismatches),
+            "unexplained": reads.unexplained(cfg)[:5],
+            "checks": {"reads_secs": reads.secs, "audit_secs": audit.secs,
+                       "reads_launches": reads.launches},
+            "audit": (audit.rebuilds, audit.masks_checked, audit.bad[:5]),
+            "plane": None if plane is None else {
+                "stats": dict(plane.stats), "cap": plane._cap,
+                "blocks": len(plane._cols), "spd": plane._spd,
+                "entries": plane.n_dev,
+                "reference_cap": reference_cap(audit.rebuilds,
+                                               plane.min_block),
+                "live": len({id(sh.partition.columns) for sh in w.shards}),
+                "rows": max(max(sh.partition.columns.n_v,
+                                sh.partition.columns.n_e)
+                            for sh in w.shards)}}
+
+
+def partition_print(p) -> dict:
+    """A partition's whole multi-version state, each version with its
+    stamp's key (the reference recovery battery's fingerprint)."""
+    def vers(vs):
+        return tuple((v.value, v.ts.key()) for v in vs)
+
+    def props(d):
+        return tuple(sorted((k, vers(vs)) for k, vs in d.items()))
+
+    def key(ts):
+        return None if ts is None else ts.key()
+
+    return {vid: (v.create_ts.key(), key(v.delete_ts),
+                  tuple(sorted((eid, e.dst, e.create_ts.key(),
+                                key(e.delete_ts), props(e.props))
+                               for eid, e in v.out_edges.items())),
+                  props(v.props))
+            for vid, v in p.vertices.items()}
+
+
+def replay_diffs(w) -> list:
+    """Each shard's partition rebuilt from the store twice, by WAL replay
+    (across any torn tail, which replay truncates) and by the
+    ``vertices`` walk; the shards whose two rebuilds differ."""
+    part = type(w.shards[0].partition)
+    bad = []
+    for sid in range(w.cfg.n_shards):
+        prints = []
+        for ops in (w.store.recover_shard(sid, use_wal=True),
+                    w.store.recover_shard_walk(sid)):
+            p = part(w.cfg.n_gatekeepers, intern=w.intern)
+            for op in ops:
+                p.apply_op(op, op["ts"])
+            prints.append(partition_print(p))
+        if prints[0] != prints[1]:
+            bad.append(sid)
+    return bad
+
+
+def failover_twin(*args) -> dict:
+    """:func:`run_failover`'s plane-off CPU twin, for a worker process."""
+    torch.set_num_threads(1)
+    return run_failover(None, *args)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """PyTorch's intra-op threads set to ``n`` for the block.  A stream's
+    host tensors are small: with a worker beside it, each process at the
+    host's default thread count took twice as long as at one thread."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+FAILOVER_COUNTERS = {
+    "A": ("replica_reads_served", "replica_promotions",
+          "replica_cold_resyncs", "stamps_settled"),
+    "B": ("wal_replay_ops", "client_retries", "crashes_injected",
+          "wal_torn_truncated", "tx_dedup_hits")}
+
+
+def failover_check(label: str, card: dict, twin: dict,
+                   device: str = "cuda") -> dict:
+    """Phase 3e's checks of one run against its twin (raises
+    ``PhaseError``); returns the counters it names."""
+    bad = diff_records(card["recs"], twin["recs"])
+    if bad:
+        raise PhaseError(f"failover {label}: card run != plane-off CPU "
+                         f"twin:\n" + "\n".join(bad[:10]))
+    for k in ("trace", "metrics"):
+        if card[k] != twin[k]:
+            raise PhaseError(f"failover {label}: the {k} differs between "
+                             f"card and twin")
+    c = card["recs"][-1][1]
+    counters = {k: c[k] for k in FAILOVER_COUNTERS[label]}
+    zero = [k for k, v in counters.items() if not v]
+    if zero:
+        raise PhaseError(f"failover {label}: counters {zero} are 0: "
+                         f"{counters}")
+    if card["reads"] != twin["reads"]:
+        raise PhaseError(f"failover {label}: reads checked / unresolved / "
+                         f"mismatched {card['reads'][:2]} on the card, "
+                         f"{twin['reads'][:2]} on the twin")
+    for side, r in (("card", card), ("twin", twin)):
+        # the only mismatches allowed are the reference's own (ROADMAP
+        # §3): clustering answered by a replica under aliased windows,
+        # so none in run B, which has no replicas
+        if any(r["invariants"].values()) or r["lost"] or r["replay"] \
+                or r["unexplained"] or (label == "B" and r["reads"][2]) \
+                or not r["reads"][0]:
+            raise PhaseError(f"failover {label} {side}: invariants "
+                             f"{r['invariants']}, shards whose WAL replay "
+                             f"!= the walk {r['replay']}, acked "
+                             f"transactions lost "
+                             f"{r['lost'][:5]}, reads checked / unresolved "
+                             f"/ mismatched {r['reads']}, not explained "
+                             f"{r['unexplained']}")
+    p = card["plane"]
+    rebuilds, checked, audit_bad = card["audit"]
+    if audit_bad or not rebuilds or checked < 1:
+        raise PhaseError(f"failover {label}: plane audit {audit_bad}, "
+                         f"{len(rebuilds)} rebuilds, {checked} checked")
+    if p["blocks"] != p["live"] or p["cap"] < p["rows"] \
+            or not p["stats"]["launches"]:
+        raise PhaseError(f"failover {label}: plane {p} at the end")
+    want = ("before", "before_pairs", "visibility")
+    if device == "cpu":
+        missing = [k for k, v in card["counts"].items() if v]
+    else:
+        missing = [k for k in want if not card["counts"][k]]
+        if card["counts"]["before"] < p["entries"] * p["stats"]["launches"]:
+            missing.append("before per entry")
+    if missing or any(twin["counts"].values()) \
+            or any(twin["checks"]["reads_launches"].values()):
+        raise PhaseError(f"failover {label}: kernels {missing} wrong on "
+                         f"{device}, or the twin launched: "
+                         f"{card['counts']} / {twin['counts']}")
+    return counters
+
+
+def phase_failover(seed: int, n_users: int, n_prog: int, n_tx: int,
+                   serve_requests: int = 0, device: str = "cuda") -> dict:
+    """Phase 3e (see the module note): runs A (replicas) and B (recovery)
+    at PAPER_DEPLOYMENT's layout with the column plane over every card,
+    each against its plane-off CPU twin; the two twins run in worker
+    processes while the card runs A then B, every process at one
+    intra-op thread."""
+    from repro_torch.configs.weaver_store import PAPER_DEPLOYMENT
+    from repro_torch.launch.mesh import make_columns_mesh
+    layout = (PAPER_DEPLOYMENT.n_gatekeepers, PAPER_DEPLOYMENT.n_shards)
+    devices = (make_columns_mesh(device="cpu") if device == "cpu"
+               else make_columns_mesh())
+    print(f"failover: PAPER_DEPLOYMENT's layout, {layout[0]} gatekeepers "
+          f"(C {layout[0] + 1}), {layout[1]} shards, the column plane over "
+          f"{[str(d) for d in devices]}; {n_users:,} users (cut from SNAP "
+          f"soc-LiveJournal1's {LIVEJOURNAL_VERTICES:,}: the simulator's "
+          f"ingest bounds it), {n_tx} transactions and {n_prog} of each "
+          f"node program, {serve_requests} serving requests; A: 2 replicas "
+          f"a shard, 2 pods, read windows 0.5 ms aliased, adaptive "
+          f"admission, tracing 0.1, metrics every 5 ms, random change-feed "
+          f"faults, kills of {', '.join(FAILOVER_KILLS)}; B: no replicas, "
+          f"group commit 1 ms, WAL replay, a torn WAL tail, a gatekeeper "
+          f"lost after the WAL and two shards mid-apply, a burst of "
+          f"{FAILOVER_BURST} transactions under the faults", flush=True)
+    out = {}
+    runs = {lb: (lb, seed, n_users, n_prog, n_tx, serve_requests, layout)
+            for lb in ("A", "B")}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=2, mp_context=ctx) as pool, \
+            torch_threads(1):
+        twins = {lb: pool.submit(failover_twin, *a) for lb, a in runs.items()}
+        cards = {lb: run_failover(devices, *a) for lb, a in runs.items()}
+        twins = {lb: f.result() for lb, f in twins.items()}
+    for lb in ("A", "B"):
+        card, twin = cards[lb], twins[lb]
+        counters = failover_check(lb, card, twin, device)
+        p = card["plane"]
+        rebuilds = card["audit"][0]
+        ck, tk = card["checks"], twin["checks"]
+        print(f"failover {lb}: {card['steps']} steps in {card['secs']:.2f} s "
+              f"host wall clock on {device} (plane-off CPU twin, "
+              f"concurrent: {twin['secs']:.2f} s), the checks apart: "
+              f"run_local re-runs {ck['reads_secs']:.2f} s / "
+              f"{tk['reads_secs']:.2f} s, plane audit "
+              f"{ck['audit_secs']:.2f} s; records, Chrome trace "
+              f"({len(card['trace']['traceEvents'])} events) and metrics "
+              f"export == the twin's; invariants {card['invariants']}; "
+              f"{card['reads'][0]} reads re-run by run_local at their "
+              f"stamp, {len(card['reads'][2])} differ (each clustering "
+              f"served by a replica under aliased windows, as the "
+              f"reference; {card['reads'][1]} unresolved); acked "
+              f"transactions all read back; counters "
+              f"{json.dumps(counters)}; the path's launches "
+              f"{card['counts']} (the re-runs' apart: "
+              f"{ck['reads_launches']})", flush=True)
+        print(f"failover {lb} plane: {len(rebuilds)} rebuilds, each with "
+              f"blocks == the live partitions and B == pow2(max(min_block, "
+              f"1.25 x the largest live table)), masks == the plain before "
+              f"after {card['audit'][1]}; (blocks, B, largest table) per "
+              f"rebuild {rebuilds}; at the end {p['blocks']} blocks for "
+              f"{p['live']} live partitions over {p['entries']} entries, B "
+              f"{p['cap']:,} for a largest table of {p['rows']:,} rows (the "
+              f"reference's rule: {p['reference_cap']:,}); stats "
+              f"{p['stats']}", flush=True)
+        out[lb] = {"secs": card["secs"], "twin_secs": twin["secs"],
+                   "checks": ck, "mismatches": len(card["reads"][2]),
+                   "counters": counters, "counts": card["counts"],
+                   "plane": p, "rebuilds": rebuilds}
+    print("failover kernels: " + json.dumps(
+        {lb: out[lb]["counts"] for lb in out}), flush=True)
+    return out
+
+
+def run_phase_3e(seed: int = 0, n_users: int = FAILOVER_USERS,
+                 n_prog: int = N_PROG, n_tx: int = N_TX) -> dict:
+    """Phase 3e at main's sizes, its host seconds printed after it."""
+    t0 = time.perf_counter()
+    res = phase_failover(seed, n_users, *small_stream(n_prog, n_tx),
+                         FAILOVER_SERVE)
+    print(f"3e phase: {time.perf_counter() - t0:.2f} s host wall clock",
           flush=True)
     return res
 
@@ -3130,7 +3763,9 @@ ENTRY_LOSS_TOL = 2e-2   # |final loss cuda - cpu| / loss of the training
 TRAIN_SIZES = {
     "full": {
         "6a": dict(layers=6, batch=2, seq=128, steps=3),
-        "6b": dict(layers=26, batch=8, seq=4096, steps=10, ckpt_every=5),
+        # 6 steps: the script's time limit; the step-5 checkpoint and
+        # its restore stay
+        "6b": dict(layers=26, batch=8, seq=4096, steps=6, ckpt_every=5),
         "6c": dict(layers=2, seq=4096, steps=4, lock_tokens=128,
                    lock_steps=2, serve_batch=2, serve_prompt=256,
                    serve_steps=8),
@@ -3350,7 +3985,8 @@ def phase_lm_train(seed: int, batch: int, seq: int, steps: int,
           f"vocab {cfg.vocab} {cfg.dtype} params, fp32 moments, loss_chunks "
           f"{cfg.loss_chunks}, remat {cfg.remat}; cut: train_4k's batch "
           f"{full['batch']} -> {batch} (seq {seq}; train_4k's {full['seq']}), "
-          f"{steps} steps, ckpt every {ckpt_every}", flush=True)
+          f"{steps} steps (the script's time limit), ckpt every "
+          f"{ckpt_every}", flush=True)
     model = ParamTree(transformer.init_params(cfg, seed=seed, device=device))
     n_params = sum(p.numel() for p in model.parameters())
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
@@ -3399,26 +4035,27 @@ def phase_lm_train(seed: int, batch: int, seq: int, steps: int,
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise PhaseError(f"6b: loss not finite or not falling: {losses}")
         # a failure that tears the last save: restart from the one before
+        prev = (steps - 1) // ckpt_every * ckpt_every
         os.remove(os.path.join(last.path, "MANIFEST.json"))
         t0 = time.perf_counter()
         tr.on_failure()
         sync(device)
         restore_s = time.perf_counter() - t0
-        if tr.step != steps - ckpt_every or tr.store.epoch != 1:
+        if tr.step != prev or tr.store.epoch != 1:
             raise PhaseError(f"6b: resumed at step {tr.step}, epoch "
                              f"{tr.store.epoch}")
         tr.fit(iter(batches[tr.step:]))
         again = [h["loss"] for h in tr.history[steps:]]
         diff = max(abs(a - b) / abs(b)
-                   for a, b in zip(again, losses[steps - ckpt_every:]))
+                   for a, b in zip(again, losses[prev:]))
         print(f"6b lm train: step {steps}'s save torn (manifest removed); "
-              f"on_failure restored step {steps - ckpt_every} (epoch 1) in "
+              f"on_failure restored step {prev} (epoch 1) in "
               f"{restore_s:.2f} s; rerun losses {[round(x, 4) for x in again]}"
               f", largest relative difference from the uninterrupted run "
               f"{diff:.3g} (tolerance {RESUME_TOL})", flush=True)
-        if len(again) != ckpt_every or not diff <= RESUME_TOL:
+        if len(again) != steps - prev or not diff <= RESUME_TOL:
             raise PhaseError(f"6b: rerun after on_failure {again} != "
-                             f"{losses[steps - ckpt_every:]}")
+                             f"{losses[prev:]}")
         _no_kernel_on_grad_path("6b rerun")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5102,6 +5739,8 @@ def main(argv=None) -> int:
     ap.add_argument("--plane-edges", type=int, default=LIVEJOURNAL_EDGES,
                     help="edges of phase 3d's sharded plane (vertices in "
                          "LiveJournal's proportion)")
+    ap.add_argument("--failover-users", type=int, default=FAILOVER_USERS,
+                    help="users of phase 3e's two failover runs")
     ap.add_argument("--n-prog", type=int, default=N_PROG,
                     help="node programs of each kind per deployment")
     ap.add_argument("--n-tx", type=int, default=N_TX)
@@ -5214,6 +5853,7 @@ def main(argv=None) -> int:
           f"clock", flush=True)
     run_phase_3d(args.seed, args.plane_edges, args.small_users, args.n_prog,
                  args.n_tx, args.reps)
+    run_phase_3e(args.seed, args.failover_users, args.n_prog, args.n_tx)
     for label, counts in (("main", main_counts),
                           ("host-global", small_counts)):
         missing = [k for k in ("before", "before_pairs") if not counts[k]]

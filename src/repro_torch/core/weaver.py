@@ -747,6 +747,10 @@ class Weaver:
             sid = int(name[len("shard"):])
             old = self.shards[sid]
             old.stop()
+            if self.device_plane is not None:
+                # the backup's partition (recovered, or a replica's)
+                # replaces this one: the plane's next rebuild drops it
+                self.device_plane.retire(old.partition.columns)
             inc = self._incarnations.get(name, 0) + 1
             self._incarnations[name] = inc
             nu = Shard(self.sim, sid, self.cfg.n_gatekeepers, self.oracle,

@@ -19,6 +19,14 @@ Layout invariants (the reference's, ``repro.dist.columns``):
   e_create, e_delete stacked under ONE uniform capacity ``B`` (next
   pow2 of the largest table + slack), so the launches need no
   raggedness;
+* a rebuild lays out the LIVE partitions only and sizes ``B`` from
+  their largest table, pow2(max(min_block, 1.25·rows)); a partition the
+  deployment replaced (a killed shard's, after its promotion) is
+  dropped with :meth:`DeviceColumnPlane.retire`.  This departs from the
+  reference (``repro/dist/columns.py:97``), which keeps every partition
+  it has seen and starts a rebuild's size at the current ``B``, so each
+  fresh rebuild doubles ``B`` though no table grew; masks, records and
+  ``launches`` are the reference's either way;
 * devices own contiguous block ranges: with ``spd = ceil(S / n_dev)``
   blocks per device, block ``bi`` lives on device ``bi // spd`` at slot
   ``bi % spd`` of that device's ``(spd, 4, B, C)`` int32 tensor;
@@ -70,7 +78,8 @@ class DeviceColumnPlane:
     snapshot engine and per-shard plan builds feed from it.  Blocks are
     keyed by column-table identity (``id(cols)`` with a strong ref), so
     dead shards, promoted backups and engine rebuilds never confuse
-    block assignment.  ``devices`` defaults to
+    block assignment; :meth:`retire` drops a replaced partition's block
+    at the next rebuild.  ``devices`` defaults to
     ``launch.mesh.make_columns_mesh()``: every card present.  A device
     may be listed more than once (each entry then holds its own blocks).
     """
@@ -87,7 +96,9 @@ class DeviceColumnPlane:
         self.n_dev = len(self.devices)
         self.min_block = min_block
         self._idx: Dict[int, int] = {}     # id(cols) -> block index
-        self._cols: List[object] = []      # block index -> cols (strong ref)
+        self._cols: List[object] = []      # block index -> cols (strong
+        #                                    ref; None once retired, until
+        #                                    the next rebuild drops it)
         self._consumed: List[Optional[List[int]]] = []  # per-block cursor
         self._cap = 0                      # B: rows per (table, block)
         self._spd = 0                      # blocks (shards) per device
@@ -111,36 +122,64 @@ class DeviceColumnPlane:
     def sync(self, shard_cols: Sequence) -> None:
         """Bring resident blocks up to date with each partition's change
         feed.  O(changed) per device for appends/patches; a compaction
-        (or an unseen partition / capacity overflow) re-uploads or
+        re-uploads, and an unseen partition or a table past ``B``
         rebuilds."""
         live = [c for c in shard_cols if c is not None]
-        need = self._cap
+        need = 0
         fresh = not self._dev
         for cols in live:
-            bi = self._idx.get(id(cols))
-            if bi is None or self._cols[bi] is not cols:
+            if not self._holds(cols):
                 fresh = True
             need = max(need, cols.n_v, cols.n_e)
         if fresh or need > self._cap:
             for cols in live:
-                bi = self._idx.get(id(cols))
-                if bi is None or self._cols[bi] is not cols:
+                if not self._holds(cols):
                     self._idx[id(cols)] = len(self._cols)
                     self._cols.append(cols)
                     self._consumed.append(None)
-            self._rebuild(need)
+            self._rebuild()
             return
         for cols in live:
             self._sync_one(self._idx[id(cols)], cols)
 
-    def _rebuild(self, need_rows: int) -> None:
-        """Lay every block out anew, one device at a time: the device's
-        tensor is filled with ``NO_STAMP`` on the device and each of its
-        blocks' synced rows copied in, so the host holds no staging
-        copy."""
+    def _holds(self, cols) -> bool:
+        bi = self._idx.get(id(cols))
+        return bi is not None and self._cols[bi] is cols
+
+    def retire(self, cols) -> None:
+        """Forget a partition the deployment replaced (a shard's, when a
+        backup or a replica takes its place).  Its block stays in the
+        layout, still padding the bit stream, until the next rebuild,
+        which leaves it out; so a retire alone neither rebuilds nor
+        invalidates the cached bits."""
+        if cols is None or not self._holds(cols):
+            return
+        bi = self._idx.pop(id(cols))
+        self._cols[bi] = None
+        self._consumed[bi] = None
+
+    def live_blocks(self) -> List[Tuple[int, object, List[int]]]:
+        """(block index, partition, synced cursor) of each block that
+        holds a current partition, in block order.  A retired block keeps
+        its place until the next rebuild so that the other blocks' bits
+        stay valid: a retire followed by another shard's ``sync`` and a
+        repeated query launches nothing, as in the reference."""
+        return [(bi, c, cur) for bi, (c, cur)
+                in enumerate(zip(self._cols, self._consumed))
+                if c is not None]
+
+    def _rebuild(self) -> None:
+        """Lay the live blocks out anew, one device at a time, under
+        ``B`` = pow2(max(min_block, 1.25 x their largest table)): the
+        device's tensor is filled with ``NO_STAMP`` on the device and
+        each of its blocks' synced rows copied in, so the host holds no
+        staging copy."""
+        self._cols = [c for c in self._cols if c is not None]
+        self._idx = {id(c): bi for bi, c in enumerate(self._cols)}
+        need = max((max(c.n_v, c.n_e) for c in self._cols), default=0)
         s = len(self._cols)
         self._spd = max(1, -(-s // self.n_dev))
-        self._cap = _pow2(max(self.min_block, need_rows + need_rows // 4))
+        self._cap = _pow2(max(self.min_block, need + need // 4))
         self._dev = []                      # free the old blocks first
         for d, dev in enumerate(self.devices):
             blk = torch.full((self._spd, TABLES, self._cap, self.c),
@@ -153,8 +192,7 @@ class DeviceColumnPlane:
         words = self.n_dev * self._spd * TABLES * self._cap // 32
         self._host = torch.empty((words,), dtype=torch.int32,
                                  pin_memory=self._pinned)
-        for bi, cols in enumerate(self._cols):
-            self._consumed[bi] = cols.cursor()
+        self._consumed = [c.cursor() for c in self._cols]
         self._bits = None
         self.stats["rebuilds"] += 1
 
@@ -278,6 +316,4 @@ class DeviceColumnPlane:
                      for t, n in enumerate((nv, nv, ne, ne)))
 
     def has(self, cols) -> bool:
-        bi = self._idx.get(id(cols))
-        return (bi is not None and self._cols[bi] is cols
-                and self._bits is not None)
+        return self._holds(cols) and self._bits is not None

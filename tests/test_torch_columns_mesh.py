@@ -21,6 +21,8 @@ import torch
 from test_device_shard import CHURN_SRC
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
 
 # CHURN_SRC, returning the sharded Weaver's plane beside its stats
 CHURN_PLANE_SRC = CHURN_SRC.replace(
@@ -88,6 +90,7 @@ def layout_walk(make_plane, to_np):
                                c.e_delete)):
                 assert np.array_equal(m, _np_before(tbl.view(), q))
         out.append({"spd": plane._spd, "cap": plane._cap,
+                    "rows": max(max(c.n_v, c.n_e) for c in cols),
                     "n_blocks": [int(to_np(a).shape[0]) for a in plane._dev],
                     "stats": dict(plane.stats), "owners": owners()})
 
@@ -191,14 +194,22 @@ def test_forced_multi_device_churn(devices, seed):
 def test_layout_walk_matches_reference(devices):
     """Patches, a capacity overflow and a shard count that outgrows
     n_dev * spd (a rebuild with a new spd): every step's masks equal the
-    host compare, and spd, B, each device's block count, the stats and
-    where every block's rows lie equal the reference's."""
+    host compare, and spd, each device's block count, the stats and
+    where every block's rows lie equal the reference's.  B equals the
+    reference's until the two new shards arrive; there the reference
+    starts its size at the old B and doubles it, the port sizes B from
+    the largest live table (``dist/columns.py``'s live-size rule)."""
     from repro_torch.dist.columns import DeviceColumnPlane
     got = PORT_LAYOUT(
         lambda n_gk: DeviceColumnPlane(n_gk, devices=["cpu"] * devices),
         lambda t: t.numpy())
     want = reference(devices)["layout"]
-    assert got == want
+    assert got[:3] == want[:3]
+    assert [{k: v for k, v in s.items() if k != "cap"} for s in got] == [
+        {k: v for k, v in s.items() if k != "cap"} for s in want]
+    assert [s["cap"] for s in got] == [chip_smoke.live_cap(s["rows"], 64)
+                                       for s in got]
+    assert want[3]["cap"] == 2 * got[3]["cap"]
     spds = [s["spd"] for s in got]
     assert spds[0] == -(-3 // devices) and spds[-1] == -(-5 // devices)
     assert [s["stats"]["rebuilds"] for s in got] == [1, 1, 2, 3]
@@ -206,6 +217,49 @@ def test_layout_walk_matches_reference(devices):
         assert all(len(h) == 1 for h in s["owners"])
         assert [h[0] for h in s["owners"]] == [
             [bi // s["spd"], bi % s["spd"]] for bi in range(len(s["owners"]))]
+
+
+def test_retire_keeps_the_other_blocks_bits_until_the_next_rebuild():
+    """A retired partition's block stays in the layout until the next
+    rebuild: another shard's sync at a repeated query neither rebuilds
+    nor launches (as the reference, which never retires, does not), and
+    the other blocks' masks stay the host compare's.  The new partition
+    that takes its place rebuilds, with one block per live partition."""
+    from repro_torch.core.clock import Stamp, _np_before, pack
+    from repro_torch.core.mvgraph import MVGraphPartition
+    from repro_torch.dist.columns import DeviceColumnPlane
+
+    clk = [0, 0]
+
+    def part(pi, nv):
+        p = MVGraphPartition(2)
+        for i in range(nv):
+            clk[i % 2] += 1
+            p.create_vertex(f"p{pi}v{i}", Stamp(0, tuple(clk), i % 2,
+                                                clk[i % 2]))
+        return p.columns
+
+    cols = [part(pi, 10 + 5 * pi) for pi in range(3)]
+    plane = DeviceColumnPlane(2, devices=["cpu"] * 2)
+    q = pack(Stamp(0, tuple(c - 2 for c in clk), 0, 0), 2)
+    plane.sync(cols)
+    plane.before_all(q)
+    stats = dict(plane.stats)
+    plane.retire(cols[1])
+    plane.sync([cols[0]])
+    plane.before_all(q)
+    assert plane.stats == stats                 # no rebuild, no launch
+    assert [c for _, c, _ in plane.live_blocks()] == [cols[0], cols[2]]
+    assert not plane.has(cols[1]) and plane.has(cols[2])
+    for c in (cols[0], cols[2]):
+        for m, tbl in zip(plane.masks_for(c), (c.v_create, c.v_delete,
+                                               c.e_create, c.e_delete)):
+            assert np.array_equal(m, _np_before(tbl.view(), q))
+    nu = part(3, 12)
+    plane.sync([cols[0], nu, cols[2]])
+    assert plane.stats["rebuilds"] == stats["rebuilds"] + 1
+    assert plane._cols == [cols[0], cols[2], nu]
+    assert plane._cap == chip_smoke.live_cap(20, 64) == 64
 
 
 def test_program_path_through_sharded_plans_on_4_entries():
@@ -388,8 +442,6 @@ def test_chip_smoke_sharded_plane_phase_rehearses_on_cpu():
     and a forced compaction, equal stats across the lists, and the
     paper-layout deployment with the plane over 4 entries == the plane
     off (in a worker process)."""
-    sys.path.insert(0, REPO)
-    import chip_smoke
     r = chip_smoke.phase_sharded_plane(0, 50_000, 2, 300, 1, 10,
                                        device="cpu")
     assert sorted(r["lists"]) == ["cpu x1", "cpu x2", "cpu x4"]

@@ -35,9 +35,11 @@ def test_port_weaver_matches_reference(group_commit, plane):
               write_group_commit=group_commit, device_shard_columns=plane)
     want, w_ref = chip_smoke.run_stream(
         ref_core, ref_analytics, ref_core.WeaverConfig(**kw), steps)
+    audit = chip_smoke.PlaneAudit()
     got, w_port = chip_smoke.run_stream(
         port_core, port_analytics,
-        port_core.WeaverConfig(device="cpu", **kw), steps, device="cpu")
+        port_core.WeaverConfig(device="cpu", **kw), steps, device="cpu",
+        on_weaver=audit.attach)
     assert chip_smoke.diff_records(want, got) == []
 
     counters = got[-1][1]
@@ -58,3 +60,13 @@ def test_port_weaver_matches_reference(group_commit, plane):
         assert w_port.device_plane.stats["launches"] > 0
         assert (w_port.device_plane.stats
                 == w_ref.device_plane.stats)
+        # the kill re-registers shard1: the reference keeps the dead
+        # partition's block and doubles B, the port rebuilds with the
+        # live partitions only, B from their largest table
+        assert audit.bad == [] and audit.masks_checked >= 1
+        blocks, cap, rows = audit.rebuilds[-1]
+        assert blocks == len(w_port.device_plane._cols) == 3
+        assert cap == w_port.device_plane._cap == chip_smoke.live_cap(
+            rows, w_port.device_plane.min_block)
+        assert len(w_ref.device_plane._cols) == 4
+        assert w_ref.device_plane._cap > cap
