@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from ..kernels.mv_visibility import ops as mv_ops
-from . import clock
+from . import clock, obs
 from .clock import NO_STAMP, Order, Stamp, compare
 from .mvgraph import PartitionColumns, VidIntern
 from .oracle import KIND_PROG, KIND_TX
@@ -1081,22 +1081,37 @@ def bfs_levels(edge_src, edge_dst, n_nodes: int, sources,
     ``edge_src``'s device.  Relaxes until a round changes nothing, at
     most ``max_iters`` rounds (default ``n_nodes``); the ``changed`` flag
     stays on the device and is read once per round.  ``dst_sorted`` is
-    the reference's sortedness hint: accepted, not needed."""
-    src = _tensor(edge_src).long()
-    dev = src.device
-    dst = _tensor(edge_dst, dev).long()
-    if max_iters is None:
-        max_iters = n_nodes
-    dist = torch.full((n_nodes,), int(INF), dtype=torch.int32, device=dev)
-    dist[_tensor(sources, dev).long()] = 0
-    for _ in range(max_iters):
-        # INF - 1 + 1 == INF: unreachable stays INF with no overflow
-        cand = dist[src].clamp_(max=int(INF) - 1).add_(1)
-        nd = torch.minimum(dist, _segment_reduce(cand, dst, n_nodes, "amin"))
-        changed = (nd != dist).any()
-        dist = nd
-        if not changed.item():
-            break
+    the reference's sortedness hint: accepted, not needed.
+
+    Spans (``obs.device_span``): ``analytics.bfs_levels`` around the
+    call and ``.prepare`` around the set-up (a round's read of the flag
+    is the profiler's own ``aten::item`` range); counters
+    (``obs.DATA_PLANE``): ``analytics.bfs_levels.rounds`` and ``.syncs``
+    (device-to-host reads, counted at the read)."""
+    with obs.device_span("analytics.bfs_levels"):
+        with obs.device_span("analytics.bfs_levels.prepare"):
+            src = _tensor(edge_src).long()
+            dev = src.device
+            dst = _tensor(edge_dst, dev).long()
+            if max_iters is None:
+                max_iters = n_nodes
+            dist = torch.full((n_nodes,), int(INF), dtype=torch.int32,
+                              device=dev)
+            dist[_tensor(sources, dev).long()] = 0
+        rounds = syncs = 0
+        for _ in range(max_iters):
+            rounds += 1
+            # INF - 1 + 1 == INF: unreachable stays INF with no overflow
+            cand = dist[src].clamp_(max=int(INF) - 1).add_(1)
+            nd = torch.minimum(dist,
+                               _segment_reduce(cand, dst, n_nodes, "amin"))
+            changed = (nd != dist).any()
+            dist = nd
+            syncs += 1
+            if not changed.item():
+                break
+    obs.DATA_PLANE.count("analytics.bfs_levels.rounds", rounds)
+    obs.DATA_PLANE.count("analytics.bfs_levels.syncs", syncs)
     return dist
 
 
@@ -1150,18 +1165,25 @@ def pagerank(edge_src, edge_dst, n_nodes: int, n_iters: int = 20,
              dst_sorted: bool = False) -> torch.Tensor:
     """fp32 PageRank, ``n_iters`` rounds, out-degree clamped at 1, on
     ``edge_src``'s device.  On a card the sums go through atomics, so
-    two runs may differ in the last bits."""
-    src = _tensor(edge_src).long()
-    dev = src.device
-    dst = _tensor(edge_dst, dev).long()
-    deg = _segment_reduce(torch.ones(src.shape, dtype=torch.float32,
-                                     device=dev), src, n_nodes, "sum")
-    deg = torch.clamp(deg, min=1.0)
-    pr = torch.full((n_nodes,), 1.0 / n_nodes, dtype=torch.float32,
-                    device=dev)
-    for _ in range(n_iters):
-        agg = _segment_reduce(pr[src] / deg[src], dst, n_nodes, "sum")
-        pr = (1.0 - damping) / n_nodes + damping * agg
+    two runs may differ in the last bits.
+
+    Spans: ``analytics.pagerank`` around the call, ``.prepare`` around
+    the copies, the degree pass and the init; counter
+    ``analytics.pagerank.rounds``."""
+    with obs.device_span("analytics.pagerank"):
+        with obs.device_span("analytics.pagerank.prepare"):
+            src = _tensor(edge_src).long()
+            dev = src.device
+            dst = _tensor(edge_dst, dev).long()
+            deg = _segment_reduce(torch.ones(src.shape, dtype=torch.float32,
+                                             device=dev), src, n_nodes, "sum")
+            deg = torch.clamp(deg, min=1.0)
+            pr = torch.full((n_nodes,), 1.0 / n_nodes, dtype=torch.float32,
+                            device=dev)
+        for _ in range(n_iters):
+            agg = _segment_reduce(pr[src] / deg[src], dst, n_nodes, "sum")
+            pr = (1.0 - damping) / n_nodes + damping * agg
+    obs.DATA_PLANE.count("analytics.pagerank.rounds", n_iters)
     return pr
 
 

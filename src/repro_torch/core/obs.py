@@ -34,20 +34,28 @@ Design constraints
   ``stamp_ctx`` (timestamp key -> context) and ``prog_ctx``
   (program id -> context) registries so downstream actors can recover
   the owning request's context from data they already carry.
+
+The data plane's array functions (``core/analytics``' traversals) run
+outside any simulator, on the host's and the device's clocks: they
+record through :func:`device_span` and count into :data:`DATA_PLANE`
+instead (see the section "data-plane spans and counters" below).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
 
 __all__ = [
     "Span", "Tracer", "MetricsRegistry", "OBS_COUNTER_FIELDS",
     "to_chrome_trace", "validate_trace_events", "span_tree",
     "critical_path", "attribution_table", "format_stage_table",
     "check_exactly_once", "check_stamp_monotonic", "check_completeness",
-    "run_invariant_checks",
+    "run_invariant_checks", "device_span", "DATA_PLANE",
 ]
 
 # Counters fields written by the observability layer itself; equivalence
@@ -207,8 +215,8 @@ class MetricsRegistry:
 
     * ``count(name, n)`` — monotone counter.
     * ``gauge(name, value, t)`` — last-write-wins sample with its
-      simulated timestamp; ``recent(name, horizon, now)`` reads it back
-      but returns 0.0 for samples older than ``horizon`` (a stale
+      simulated timestamp; ``gauge_values(prefix, horizon, now)`` reads
+      them back, leaving out samples older than ``horizon`` (a stale
       saturated-peer gauge must not keep windows open forever).
     * ``observe(name, value)`` — power-of-two bucketed histogram
       (replaces the ad-hoc ``Counters.admission_*_hist`` dicts).
@@ -227,12 +235,6 @@ class MetricsRegistry:
 
     def gauge(self, name: str, value: float, t: float) -> None:
         self.gauges[name] = (float(t), float(value))
-
-    def recent(self, name: str, horizon: float, now: float) -> float:
-        tv = self.gauges.get(name)
-        if tv is None or now - tv[0] > horizon:
-            return 0.0
-        return tv[1]
 
     def gauge_values(self, prefix: str, horizon: float,
                      now: float) -> Dict[str, float]:
@@ -264,11 +266,39 @@ class MetricsRegistry:
                                for k, v in sorted(self.hists.items())},
                 "timeline": self.timeline}
 
-    def hist_snapshot(self, name: str, key_suffix: str = "") -> dict:
-        """Histogram as a plain dict with string bucket keys, e.g.
-        ``{"r:64us": 3}`` for (name="admission_window", suffix="us")."""
-        return {f"{k}{key_suffix}": n
-                for k, n in sorted(self.hists.get(name, {}).items())}
+
+# ---------------------------------------------------------------------------
+# data-plane spans and counters
+# ---------------------------------------------------------------------------
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def device_span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a
+    ``torch.profiler`` session is recording, else a shared no-op context
+    (one check, about a microsecond, and no object built: a
+    ``record_function`` costs over ten microseconds a range even with no
+    profiler running).
+
+    The range lands in the profiler's own trace, on the same clock as
+    the device's kernels and copies, so a reader of that trace can put
+    each device operation, and each interval the device sat idle, down to
+    the program span open on the host at that moment.  The simulator's
+    :class:`Tracer` cannot serve here: it records on simulated time, and
+    the data plane's traversals run on the host's and the device's
+    clocks, with no simulator around them.
+    """
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+# Counters of the data plane's array functions, which run with no
+# simulator: process-wide, always on, one update a counter a call.  Not
+# any deployment's ``sim.metrics``, and never ``Counters``, so runs with
+# and without them compare equal.
+DATA_PLANE = MetricsRegistry()
 
 
 # ---------------------------------------------------------------------------
