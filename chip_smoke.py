@@ -61,7 +61,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    power iteration for pagerank to rtol 1e-4, atol 1e-9; the reference's
    per-edge table build and a numpy count for clustering, exactly, at
    2,000 sampled vertices and the 20 of largest degree) and timed with
-   CUDA events beside its bound.
+   CUDA events beside its bound.  ``bfs_levels_ga`` must also run one
+   ``bfs_round`` kernel launch a round and give the plain round's levels
+   (``bfs_levels_ga`` on the CPU).
 3b. GNN training over the live snapshot: the main deployment's card
    Weaver feeds ``DynamicGraphPipeline`` batches (a writer tx commits
    between batches); each batch goes through ``mp.propagate_matmul`` on
@@ -289,6 +291,7 @@ from repro_torch.data import graphs, synth  # noqa: E402
 from repro_torch.dist.columns import (  # noqa: E402
     TABLES, DeviceColumnPlane)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.bfs_round import kernel as bfsk  # noqa: E402
 from repro_torch.kernels.mv_visibility import kernel as mvk  # noqa: E402
 from repro_torch.kernels.mv_visibility import ops as mvops  # noqa: E402
 from repro_torch.kernels.mv_visibility import ref as mvref  # noqa: E402
@@ -319,6 +322,8 @@ KERNELS = {           # name -> what it replaces
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
     "flash_decode": "src/repro/kernels/flash_attention/kernel.py:99",
     "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:61",
+    # replaces none: the reference's BFS round is jnp gather + segment_min
+    "bfs_round": "none (src/repro/core/analytics.py:1045, jnp)",
 }
 # GC every simulated second and a WAL checkpoint every 4096 records
 # (defaults 0.05 s / 256): both rewrite O(store) state in the pure-Python
@@ -3306,10 +3311,11 @@ def phase_traversals(w, seed: int, reps: int,
 
     # name: (call, bytes per round, rounds from its segment reductions,
     #        mismatches against the oracle)
+    bfs_rounds = int(want_bfs[want_bfs < inf].max()) + 1
     runs = {
-        "bfs_levels_ga": (
+        "bfs_levels_ga": (      # no segment reduction: its depth + 1
             lambda: analytics.bfs_levels_ga(ga, [i0], device=device),
-            8 * e, lambda k: k, exact(want_bfs)),
+            8 * e, lambda k: bfs_rounds, exact(want_bfs)),
         "connected_components_ga": (
             lambda: analytics.connected_components_ga(ga, device=device),
             8 * e, lambda k: k // 2, exact(want_cc)),
@@ -3355,6 +3361,21 @@ def phase_traversals(w, seed: int, reps: int,
         print(f"traversals: {name} == host oracle (max |err| {max_err:.3g}); "
               f"{rounds} rounds, {timed}, bound {bound:.4f} ms (bytes)",
               flush=True)
+    # the BFS went through the bfs_round kernel, one launch a round, and
+    # gives the plain round's levels (on the CPU)
+    bfsk.reset_launches()
+    got = analytics.bfs_levels_ga(ga, [i0], device=device).cpu()
+    plain = analytics.bfs_levels_ga(ga, [i0], device="cpu")
+    launched = bfsk.launches["bfs_round"]
+    if not torch.equal(got, plain) or (device == "cuda"
+                                       and launched != bfs_rounds):
+        raise PhaseError(f"traversals: bfs_levels_ga launched bfs_round "
+                         f"{launched} times for {bfs_rounds} rounds; plain "
+                         f"round differs at "
+                         f"{int((got != plain).sum())} vertices")
+    out["bfs_levels_ga"]["launches"] = launched
+    print(f"traversals: bfs_levels_ga == the plain round, {launched} "
+          f"bfs_round launches", flush=True)
     got = analytics.reachable(s_d, d_d, n, i0, target)
     if got != bool(want_bfs[target] < inf):
         raise PhaseError(f"traversals: reachable(u0, {target}) = {got}")
@@ -5818,7 +5839,7 @@ def main(argv=None) -> int:
           f"{json.dumps(forms['bits'])}", flush=True)
     # phase 3c, on the card Weaver before phase 3b writes to it
     t0 = time.perf_counter()
-    phase_traversals(w, args.seed, max(2, args.reps // 4))
+    trav = phase_traversals(w, args.seed, max(2, args.reps // 4))
     print(f"traversals phase: {time.perf_counter() - t0:.2f} s host wall "
           f"clock", flush=True)
     # the GNN slice's path, driven on the main deployment's card Weaver
@@ -5930,6 +5951,13 @@ def main(argv=None) -> int:
                  "launches": rec["launches"],
                  "max_abs_err": bag_timing["max_abs_err"],
                  **bag_timing["runs"]["train_batch sum"]})
+    bfs = trav["bfs_levels_ga"]      # a whole bfs_levels_ga call, its rounds
+    rows.append({"name": "bfs_round", "route": "cuda",
+                 "source": "src/repro_torch/csrc/bfs_round.cu",
+                 "replaces": KERNELS["bfs_round"], "launches": bfs["launches"],
+                 "max_abs_err": 0.0, "ms": bfs["ms"], "plain_ms": None,
+                 "bound_ms": bfs["bound_ms"], "bound_by": "bytes",
+                 "library_ms": None})
     print(f"chip_smoke: {time.perf_counter() - t_main:.2f} s host wall "
           f"clock from main's start", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -49,8 +49,9 @@ Traversals
 ``_ga`` forms over a snapshot) are the reference's jitted frontier
 programs as torch loops on their arguments' device: segment reductions
 are ``scatter_reduce`` / ``index_add_`` with ``jax.ops.segment_*``'s
-identities, and a relax-until-stable loop reads its ``changed`` flag
-from the device once per round.
+identities (a BFS round on a card is one ``kernels.bfs_round`` launch
+instead), and a relax-until-stable loop reads its ``changed`` flag from
+the device once per round.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.bfs_round import ops as bfs_round
 from ..kernels.mv_visibility import ops as mv_ops
 from . import clock, obs
 from .clock import NO_STAMP, Order, Stamp, compare
@@ -1080,8 +1082,13 @@ def bfs_levels(edge_src, edge_dst, n_nodes: int, sources,
     """BFS level per node (INF = unreachable) via frontier relaxation, on
     ``edge_src``'s device.  Relaxes until a round changes nothing, at
     most ``max_iters`` rounds (default ``n_nodes``); the ``changed`` flag
-    stays on the device and is read once per round.  ``dst_sorted`` is
-    the reference's sortedness hint: accepted, not needed.
+    stays on the device and is read once per round.  The rounds are
+    ``kernels.bfs_round``'s: on a card one launch of its CUDA kernel a
+    round over int32 indices (int64 ones are narrowed once a call), on
+    the CPU the plain round over int64 indices; the levels ping-pong
+    between two buffers.  ``dst_sorted`` is the reference's sortedness
+    hint: accepted, not needed (the kernel is right in any edge order;
+    sorted edges only make its runs long).
 
     Spans (``obs.device_span``): ``analytics.bfs_levels`` around the
     call and ``.prepare`` around the set-up (a round's read of the flag
@@ -1090,25 +1097,29 @@ def bfs_levels(edge_src, edge_dst, n_nodes: int, sources,
     (device-to-host reads, counted at the read)."""
     with obs.device_span("analytics.bfs_levels"):
         with obs.device_span("analytics.bfs_levels.prepare"):
-            src = _tensor(edge_src).long()
+            src = _tensor(edge_src)
             dev = src.device
-            dst = _tensor(edge_dst, dev).long()
+            dst = _tensor(edge_dst, dev)
+            if src.is_cuda:             # Rounds refuses N >= 2**31 here
+                src = src.to(torch.int32).contiguous()
+                dst = dst.to(torch.int32).contiguous()
+            else:
+                src, dst = src.long(), dst.long()
             if max_iters is None:
                 max_iters = n_nodes
-            dist = torch.full((n_nodes,), int(INF), dtype=torch.int32,
-                              device=dev)
-            dist[_tensor(sources, dev).long()] = 0
+            state = bfs_round.Rounds(n_nodes,
+                                     _tensor(sources, dev).long().reshape(-1))
+            dist = state.levels[0]
         rounds = syncs = 0
-        for _ in range(max_iters):
+        for r in range(max_iters):
             rounds += 1
-            # INF - 1 + 1 == INF: unreachable stays INF with no overflow
-            cand = dist[src].clamp_(max=int(INF) - 1).add_(1)
-            nd = torch.minimum(dist,
-                               _segment_reduce(cand, dst, n_nodes, "amin"))
-            changed = (nd != dist).any()
-            dist = nd
+            dist = state.relax(src, dst, r)
             syncs += 1
-            if not changed.item():
+            bits = state.flags[r & 1].item()
+            if bits & bfs_round.kernel.BAD_INDEX:
+                raise ValueError(f"bfs_levels: an edge's end or a source "
+                                 f"lies outside [0, {n_nodes})")
+            if not bits:
                 break
     obs.DATA_PLANE.count("analytics.bfs_levels.rounds", rounds)
     obs.DATA_PLANE.count("analytics.bfs_levels.syncs", syncs)

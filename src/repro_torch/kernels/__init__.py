@@ -18,4 +18,8 @@ CPU tensors to the plain version), ref.py (plain PyTorch version).
   embedding_bag   — weighted row sums with -1 pads
                     (``csrc/embedding_bag.cu``) behind
                     ``ops.embedding_bag``: SASRec's item lookups
+  bfs_round       — one BFS relaxation round (gather, +1, segment min,
+                    changed flag; ``csrc/bfs_round.cu``) behind
+                    ``ops.Rounds``: ``core.analytics.bfs_levels``; it
+                    replaces no Pallas kernel
 """

@@ -131,9 +131,9 @@ def test_rec_server_bad_item_id_raises_and_context_lives():
 
 
 def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch, tmp_path):
-    assert build.sources() == ["embedding_bag", "flash_attention",
-                               "flash_attention_tc", "flash_decode",
-                               "mv_visibility", "segment_mp"]
+    assert build.sources() == ["bfs_round", "embedding_bag",
+                               "flash_attention", "flash_attention_tc",
+                               "flash_decode", "mv_visibility", "segment_mp"]
     path = build.library_path("mv_visibility")
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path("mv_visibility")       # stable key
