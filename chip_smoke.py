@@ -64,6 +64,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    CUDA events beside its bound.  ``bfs_levels_ga`` must also run one
    ``bfs_round`` kernel launch a round and give the plain round's levels
    (``bfs_levels_ga`` on the CPU).
+3f. BFS at a refinable timestamp (``phase_bfs_at``) at the
+   ``urand_s22_mv4`` cell's shapes: a seeded uniform random graph of
+   4,194,304 vertices and 134,217,728 slots in destination order,
+   loaded into a ``core.edgeversions.EdgeVersionTable`` at the zero
+   stamp, then 67,104 transactions through 4 gatekeepers (C = 5) that
+   announce every 16, each deleting 4 versions and appending 4; the
+   query is stamped at one gatekeeper before the last announce, so the
+   other three's 12 last transactions (96 rows) are concurrent with it.
+   With the launch counts set to 0 just before, ``bfs_levels_at`` must
+   launch the residue mode once and the masked round once a round (and
+   the plain round never); the residue mode's bits and list, the
+   refined bits and the levels must equal their plain versions
+   (``mv_visibility.ref``, ``bfs_round.ref`` over the visible rows)
+   exactly.  The residue mode and one masked round are timed beside
+   their plain versions and their bounds, and the whole query beside
+   them.
 3b. GNN training over the live snapshot: the main deployment's card
    Weaver feeds ``DynamicGraphPipeline`` batches (a writer tx commits
    between batches); each batch goes through ``mp.propagate_matmul`` on
@@ -324,6 +340,11 @@ KERNELS = {           # name -> what it replaces
     "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:61",
     # replaces none: the reference's BFS round is jnp gather + segment_min
     "bfs_round": "none (src/repro/core/analytics.py:1045, jnp)",
+    # new: the bits and the concurrent rows of a query in one pass, and
+    # the round over the visible rows alone
+    "visibility_residue": "none (src/repro/kernels/mv_visibility/"
+                          "kernel.py:104 lists no concurrent rows)",
+    "bfs_round_masked": "none (src/repro/core/analytics.py:1045, jnp)",
 }
 # GC every simulated second and a WAL checkpoint every 4096 records
 # (defaults 0.05 s / 256): both rewrite O(store) state in the pure-Python
@@ -3387,6 +3408,161 @@ def phase_traversals(w, seed: int, reps: int,
     return out
 
 
+# phase 3f: the urand_s22_mv4 cell's shapes (SCALE 22, 16 undirected
+# edges a vertex; 4 gatekeepers announcing every 16 transactions)
+BFS_AT_SCALE, BFS_AT_GK, BFS_AT_PERIOD = 22, 4, 16
+BFS_AT_TXS = 16 * 4194         # two of the cell's windows, whole periods
+
+
+def phase_bfs_at(seed: int, reps: int, scale: int = BFS_AT_SCALE,
+                 txs: int = BFS_AT_TXS, device: str = "cuda") -> dict:
+    """Phase 3f: ``analytics.bfs_levels_at`` on ``device`` over a seeded
+    multi-version graph, held exactly to the plain versions of its
+    kernels and timed (see the module note)."""
+    from repro_torch.core.clock import Stamp
+    from repro_torch.core.edgeversions import EdgeVersionTable
+    from repro_torch.core.oracle import TimelineOracle
+    from repro_torch.kernels.bfs_round import ops as bfsops
+    from repro_torch.kernels.bfs_round import ref as bfsref
+
+    g_, per = BFS_AT_GK, BFS_AT_PERIOD
+    n, half = 1 << scale, 16 << scale
+    gen = torch.Generator(device).manual_seed(seed)
+    a = torch.randint(0, n, (half,), generator=gen, device=device,
+                      dtype=torch.int32)
+    b = torch.randint(0, n, (half,), generator=gen, device=device,
+                      dtype=torch.int32)
+    src, dst = torch.cat([a, b]), torch.cat([b, a])
+    del a, b
+    order = torch.sort(dst.to(torch.int64) << 32 | src.to(torch.int64))
+    src, dst = src[order.indices], dst[order.indices]
+    del order
+    e = src.numel()
+    table = EdgeVersionTable(g_, n, src, dst, capacity=e + 4 * txs)
+    del src, dst
+    # transaction t at gatekeeper t mod G: its own count, and every other
+    # gatekeeper's count before its announce period
+    t = torch.arange(txs, dtype=torch.int64, device=device)
+    start = t // per * per
+    j = torch.arange(g_, device=device)
+    clk = torch.where((t % g_).unsqueeze(1) == j, (t // g_ + 1).unsqueeze(1),
+                      (start.unsqueeze(1) - j + g_ - 1) // g_)
+    rows = torch.cat([torch.zeros(txs, 1, dtype=torch.int64, device=device),
+                      clk], 1).to(torch.int32).repeat_interleave(4, 0)
+    gone = torch.randperm(e, generator=gen, device=device)[:4 * txs]
+    first = table.append(
+        torch.randint(0, n, (4 * txs,), generator=gen, device=device,
+                      dtype=torch.int32),
+        torch.randint(0, n, (4 * txs,), generator=gen, device=device,
+                      dtype=torch.int32), rows)
+    table.delete(gone, rows)
+    del rows, clk, t, start
+
+    def count(k: int, before: int) -> int:
+        return (before - k + g_ - 1) // g_
+
+    tail = []
+    for x in range(txs - per, txs):
+        ck = tuple(x // g_ + 1 if k == x % g_ else count(k, txs - per)
+                   for k in range(g_))
+        tail += [Stamp(0, ck, x % g_, ck[x % g_])] * 4
+    table.remember(range(first + 4 * (txs - per), first + 4 * txs), tail, 0)
+    table.remember(gone[4 * (txs - per):].tolist(), tail, 1)
+    h = 1
+    ck = tuple(count(k, txs) + 1 if k == h else count(k, txs - per)
+               for k in range(g_))
+    at = Stamp(0, ck, h, ck[h])
+    q = torch.tensor((0,) + ck, dtype=torch.int32, device=device)
+    root = int(table.src[0])
+    c_rows, d_rows = table.create_rows, table.delete_rows
+    cuda = torch.device(device).type == "cuda"
+
+    # the query, its launches counted from 0
+    mvk.reset_launches()
+    bfsk.reset_launches()
+    levels, bits = analytics.bfs_levels_at(table, at, [root],
+                                           TimelineOracle())
+    sync(device)
+    inf = int(analytics.INF)
+    rounds = int(levels[levels < inf].max()) + 1
+    launched = {"visibility_residue": mvk.launches["visibility_residue"],
+                "bfs_round_masked": bfsk.launches["bfs_round_masked"],
+                "bfs_round": bfsk.launches["bfs_round"]}
+    want = {"visibility_residue": 1, "bfs_round_masked": rounds,
+            "bfs_round": 0}
+    if cuda and launched != want:
+        raise PhaseError(f"bfs_at: launches {launched}, expected {want}")
+
+    # the residue mode against its plain version
+    got_bits, res = mvops.visibility_residue(c_rows, d_rows, q)
+    entries = mvops.read_residue(res)
+    plain_bits, plain_entries = mvref.visibility_residue(c_rows, d_rows, q)
+    if not torch.equal(got_bits, plain_bits) or not np.array_equal(
+            entries, plain_entries.cpu().numpy()):
+        raise PhaseError("bfs_at: the residue mode differs from its plain "
+                         "version")
+    if entries.size != 8 * per // g_ * (g_ - 1):
+        raise PhaseError(f"bfs_at: {entries.size} concurrent rows, not the "
+                         f"{8 * per // g_ * (g_ - 1)} of the tail")
+    # the refined bits: every concurrent write goes before the query
+    vis = ((mvref.before(c_rows, q) | mvref.concurrent(c_rows, q))
+           & ~(mvref.before(d_rows, q) | mvref.concurrent(d_rows, q)))
+    moved = int((mvref.unpack_bits(plain_bits, table.n) != vis).sum())
+    if not torch.equal(bits, mvref.pack_bits(vis)) or moved != entries.size:
+        raise PhaseError(f"bfs_at: refined bits differ from the plain ones "
+                         f"(refinement moved {moved} rows)")
+    # the levels against the plain round over the visible rows
+    s_v, d_v = table.src[vis], table.dst[vis]
+    cur = bfsref.start(n, torch.tensor([root], device=device))[0][0]
+    while True:
+        cur, changed = bfsref.round_(s_v, d_v, cur)
+        if not bool(changed):
+            break
+    del s_v, d_v, vis
+    if not torch.equal(levels, cur):
+        raise PhaseError(f"bfs_at: levels differ from the plain round at "
+                         f"{int((levels != cur).sum())} vertices")
+    print(f"bfs_at: {table.n} rows ({e} base, {4 * txs} log), "
+          f"{entries.size} concurrent; residue, refined bits and levels "
+          f"== plain ({rounds} rounds, launches {launched})", flush=True)
+
+    rows_ = table.n
+    out = {"visibility_residue": {"launches": 1, "bound_ms": (
+               rows_ * 2 * (g_ + 1) * 4 + rows_ / 8) / HBM_BYTES_PER_S * 1e3},
+           "bfs_round_masked": {"launches": rounds, "bound_ms": (
+               rows_ * 8 + rows_ / 8) / HBM_BYTES_PER_S * 1e3}}
+    for v in out.values():
+        v.update(ms=None, plain_ms=None, max_abs_err=0.0, bound_by="bytes",
+                 library_ms=None)
+    if not cuda:
+        return out
+    # one masked round from the state half way down the levels
+    state = bfsops.Rounds(n, torch.tensor([root], device=device))
+    for r in range(rounds // 2):
+        state.relax(table.src, table.dst, r, bits)
+    p = rounds // 2 & 1
+    args = (table.src, table.dst, bits, state.levels[p], state.levels[p ^ 1],
+            state.mirrors[p], state.mirrors[p ^ 1], state.flags, p)
+    plain_args = (table.src, table.dst, state.levels[p].clone(),
+                  state.levels[p ^ 1].clone(), state.flags.clone(), p, bits)
+    out["visibility_residue"]["ms"] = time_ms(
+        lambda: mvops.visibility_residue(c_rows, d_rows, q), reps)
+    out["visibility_residue"]["plain_ms"] = time_ms(
+        lambda: mvref.visibility_residue(c_rows, d_rows, q), max(2, reps // 4))
+    out["bfs_round_masked"]["ms"] = time_ms(
+        lambda: bfsk.relax_masked(*args), reps)
+    out["bfs_round_masked"]["plain_ms"] = time_ms(
+        lambda: bfsref.relax(*plain_args), max(2, reps // 4))
+    query_ms = time_ms(lambda: analytics.bfs_levels_at(
+        table, at, [root], TimelineOracle()), max(2, reps // 4))
+    for name, v in out.items():
+        print(f"bfs_at: {name} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
+              f"ms, bound {v['bound_ms']:.4f} ms (bytes)", flush=True)
+    print(f"bfs_at: the whole query {query_ms:.4f} ms", flush=True)
+    out["query_ms"] = query_ms
+    return out
+
+
 # (module, argv) of the database's entry points, each run with --device
 # cuda and --device cpu
 ENTRY_POINTS = (
@@ -5822,6 +5998,11 @@ def main(argv=None) -> int:
     flash_timing = phase_flash(args.seed, args.flash_seq, args.decode_batch,
                                big_reps)
     bag_timing = phase_bag(args.seed, args.reps)
+    t0 = time.perf_counter()
+    bfs_at = phase_bfs_at(args.seed, args.reps)
+    torch.cuda.empty_cache()
+    print(f"3f phase: {time.perf_counter() - t0:.2f} s host wall clock",
+          flush=True)
 
     main_counts, w, serve_counts = deployment(
         "main", args.seed, args.users, plane=True, n_prog=args.n_prog,
@@ -5958,6 +6139,12 @@ def main(argv=None) -> int:
                  "max_abs_err": 0.0, "ms": bfs["ms"], "plain_ms": None,
                  "bound_ms": bfs["bound_ms"], "bound_by": "bytes",
                  "library_ms": None})
+    for name in ("visibility_residue", "bfs_round_masked"):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/" + (
+                         "mv_visibility.cu" if name == "visibility_residue"
+                         else "bfs_round.cu"),
+                     "replaces": KERNELS[name], **bfs_at[name]})
     print(f"chip_smoke: {time.perf_counter() - t_main:.2f} s host wall "
           f"clock from main's start", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -66,6 +66,7 @@ from ..kernels.bfs_round import ops as bfs_round
 from ..kernels.mv_visibility import ops as mv_ops
 from . import clock, obs
 from .clock import NO_STAMP, Order, Stamp, compare
+from .edgeversions import EdgeVersionTable
 from .mvgraph import PartitionColumns, VidIntern
 from .oracle import KIND_PROG, KIND_TX
 
@@ -1109,21 +1110,31 @@ def bfs_levels(edge_src, edge_dst, n_nodes: int, sources,
                 max_iters = n_nodes
             state = bfs_round.Rounds(n_nodes,
                                      _tensor(sources, dev).long().reshape(-1))
-            dist = state.levels[0]
-        rounds = syncs = 0
-        for r in range(max_iters):
-            rounds += 1
-            dist = state.relax(src, dst, r)
-            syncs += 1
-            bits = state.flags[r & 1].item()
-            if bits & bfs_round.kernel.BAD_INDEX:
-                raise ValueError(f"bfs_levels: an edge's end or a source "
-                                 f"lies outside [0, {n_nodes})")
-            if not bits:
-                break
+        dist, rounds = _relax_rounds(state, src, dst, n_nodes, max_iters,
+                                     "bfs_levels")
     obs.DATA_PLANE.count("analytics.bfs_levels.rounds", rounds)
-    obs.DATA_PLANE.count("analytics.bfs_levels.syncs", syncs)
+    obs.DATA_PLANE.count("analytics.bfs_levels.syncs", rounds)
     return dist
+
+
+def _relax_rounds(state: bfs_round.Rounds, src: torch.Tensor,
+                  dst: torch.Tensor, n_nodes: int, max_iters: int,
+                  caller: str, bits: Optional[torch.Tensor] = None):
+    """``(levels, rounds)``: ``state``'s rounds over the edges (with
+    ``bits``, the visible ones) until one changes nothing, at most
+    ``max_iters``; each round's flag is read once (one sync a round)."""
+    dist = state.levels[0]
+    rounds = 0
+    for r in range(max_iters):
+        rounds += 1
+        dist = state.relax(src, dst, r, bits)
+        flag = state.flags[r & 1].item()
+        if flag & bfs_round.kernel.BAD_INDEX:
+            raise ValueError(f"{caller}: an edge's end or a source lies "
+                             f"outside [0, {n_nodes})")
+        if not flag:
+            break
+    return dist, rounds
 
 
 def bfs_levels_ga(ga: GraphArrays, sources, max_iters: Optional[int] = None,
@@ -1133,6 +1144,131 @@ def bfs_levels_ga(ga: GraphArrays, sources, max_iters: Optional[int] = None,
     return bfs_levels(_tensor(ga.csc_src, device), _tensor(ga.csc_dst, device),
                       ga.n_nodes, _tensor(sources, device), max_iters,
                       dst_sorted=True)
+
+
+def bfs_levels_at(table: EdgeVersionTable, at: Stamp, sources, oracle,
+                  max_iters: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BFS levels from ``sources`` over the edge versions of ``table``
+    visible at the refinable timestamp ``at``, on the table's device;
+    returns ``(levels, bits)``: the int32 levels (INF = unreachable) and
+    the visibility of each row at ``at`` after refinement, as
+    (ceil(N / 32),) int32 words (bit k = row k, least significant first).
+
+    1. One launch of the ``mv_visibility`` kernel's residue mode: a
+       visible bit a row (create ≺ at and not delete ≺ at) into a device
+       buffer, and the rows whose create or delete stamp is concurrent
+       with ``at``.
+    2. One device-to-host read of that residue.
+    3. Where it is not empty, ONE ``oracle.order_events`` request over its
+       unique concurrent Stamps (``table.recent``) plus ``at``, with the
+       node-program rule as ``SnapshotEngine._resolve`` uses it: a
+       concurrent write the oracle has not ordered goes before the query.
+    4. The bits of the refined rows patched on the device.
+    5. The BFS rounds over the table's rows, each one launch of the
+       masked ``bfs_round`` kernel that skips invisible rows (on the CPU,
+       the plain round over the visible rows); the flag is read once a
+       round.
+
+    Nothing of the table is copied: no per-query copy of the edge arrays
+    and no host copy of the bits.  The query's oracle events stay until
+    the deployment's GC collects them (``oracle.collect`` at a horizon
+    that every gatekeeper has announced past; the query's own stamp is
+    not such a horizon while other gatekeepers may still hand out stamps
+    concurrent with it).
+
+    Spans (``obs.device_span``): ``analytics.bfs_levels_at`` around the
+    call, ``.visibility`` around the launch and ``.refine`` around the
+    read, the oracle request and the patch.  Counters
+    (``obs.DATA_PLANE``, under ``analytics.bfs_levels_at.``): ``rows``,
+    ``concurrent_rows``, ``oracle_stamps`` (unique Stamps sent),
+    ``oracle_requests`` and ``rounds``."""
+    with obs.device_span("analytics.bfs_levels_at"):
+        dev = table.device
+        q = torch.from_numpy(clock.pack(at, table.n_gk)).to(dev)
+        with obs.device_span("analytics.bfs_levels_at.visibility"):
+            bits, res = mv_ops.visibility_residue(table.create_rows,
+                                                  table.delete_rows, q)
+        with obs.device_span("analytics.bfs_levels_at.refine"):
+            try:
+                entries = mv_ops.read_residue(res)
+            except mv_ops.ResidueOverflow as full:    # a second launch
+                bits, res = mv_ops.visibility_residue(
+                    table.create_rows, table.delete_rows, q,
+                    mv_ops.residue_buffer(dev, full.count))
+                entries = mv_ops.read_residue(res)
+            n_stamps = _refine_residue(table, entries, at, oracle, bits)
+        if max_iters is None:
+            max_iters = table.n_nodes
+        state = bfs_round.Rounds(table.n_nodes,
+                                 _tensor(sources, dev).long().reshape(-1))
+        dist, rounds = _relax_rounds(state, table.src, table.dst,
+                                     table.n_nodes, max_iters,
+                                     "bfs_levels_at", bits)
+    name = "analytics.bfs_levels_at."
+    obs.DATA_PLANE.count(name + "rows", table.n)
+    obs.DATA_PLANE.count(name + "concurrent_rows", len(entries))
+    obs.DATA_PLANE.count(name + "oracle_stamps", n_stamps)
+    obs.DATA_PLANE.count(name + "oracle_requests", int(n_stamps > 0))
+    obs.DATA_PLANE.count(name + "rounds", rounds)
+    return dist, bits
+
+
+def _refine_residue(table: EdgeVersionTable, entries: np.ndarray, at: Stamp,
+                    oracle, bits: torch.Tensor) -> int:
+    """Settle the residue rows' visibility through the oracle and patch
+    ``bits`` where it changes; returns the unique Stamps sent (0: no
+    request).  A residue side whose Stamp the table no longer keeps
+    breaks the table's rule (only rows written since the last announce
+    can be concurrent) and raises."""
+    mvk = mv_ops.kernel                 # the residue entries' flag bits
+    rows = entries >> mvk.FLAG_BITS
+    before = np.stack([entries & mvk.CREATE_BEFORE,
+                       entries & mvk.DELETE_BEFORE], 1) > 0
+    conc = np.stack([entries & mvk.CREATE_CONC,
+                     entries & mvk.DELETE_CONC], 1) > 0
+    pend: List[tuple] = []              # (residue index, side, Stamp)
+    verdict: Dict[tuple, bool] = {}     # a Stamp's key: concurrent with at
+    for i, side in zip(*np.nonzero(conc)):
+        s = table.recent.get(int(rows[i]), (None, None))[side]
+        if s is None:
+            raise RuntimeError(
+                f"row {rows[i]}'s {('create', 'delete')[side]} stamp is "
+                f"concurrent with {at} but the table keeps no Stamp for it")
+        c = verdict.get(s.key())
+        if c is None:
+            c = verdict[s.key()] = compare(s, at) is Order.CONCURRENT
+        if c:
+            pend.append((i, side, s))
+    if not pend:
+        return 0
+    uniq: Dict[tuple, Stamp] = {}
+    for _, _, s in pend:
+        uniq[s.key()] = s
+    stamps = list(uniq.values())
+    chain = oracle.order_events(stamps + [at],
+                                [KIND_TX] * len(stamps) + [KIND_PROG])
+    pos = {k: j for j, k in enumerate(chain)}
+    p_at = pos[at.key()]
+    was = before[:, 0] & ~before[:, 1]
+    for i, side, s in pend:
+        before[i, side] = pos[s.key()] < p_at
+    now = before[:, 0] & ~before[:, 1]
+    moved = was != now
+    rows = rows[moved]
+    if rows.size:
+        words, first = np.unique(rows >> 5, return_index=True)
+        bit = np.left_shift(np.uint32(1), (rows & 31).astype(np.uint32))
+        on = np.bitwise_or.reduceat(np.where(now[moved], bit, 0)
+                                    .astype(np.uint32), first)
+        hit = np.bitwise_or.reduceat(bit, first)
+        patch = torch.from_numpy(np.stack([
+            words, (~hit).view(np.int32), on.view(np.int32)]).astype(
+                np.int64)).to(bits.device)
+        w = patch[0]
+        bits[w] = (bits[w] & patch[1].to(torch.int32)) \
+            | patch[2].to(torch.int32)
+    return len(stamps)
 
 
 def reachable(edge_src, edge_dst, n_nodes: int, source: int,

@@ -86,17 +86,25 @@ class TimelineOracle:
         return len(dead)
 
     # ---- reachability over the mixed graph --------------------------------
-    def _reach_full(self, a: Key, b: Key) -> bool:
+    def _reach_full(self, a: Key, b: Key,
+                    vc: Optional[Dict[Key, List[Key]]] = None) -> bool:
         """a ⤳ b over the mixed graph: explicit edges ∪ vclock-implied hops.
 
         neighbor(x) = succ(x) ∪ {y : stamp(x) ≺ stamp(y)}.  Correct because
         both edge kinds are valid happens-before relations and the relation
         we want is their transitive closure.
+
+        ``vc`` caches each visited event's vclock-implied successors; it
+        holds while no event is added or dropped (explicit edges may be,
+        and do not enter it), so :meth:`order_events` shares one across
+        the searches of a request, and a lone search makes its own.
         """
         if a == b:
             return True
         if (a, b) in self._pos_cache:
             return True
+        vc = {} if vc is None else vc
+        sb = self.events[b].stamp
         seen = {a}
         stack = [a]
         while stack:
@@ -112,37 +120,49 @@ class TimelineOracle:
                     stack.append(y)
             # vclock-implied successors
             sx = ex.stamp
-            if compare(sx, self.events[b].stamp) is Order.BEFORE:
+            if compare(sx, sb) is Order.BEFORE:
                 self._pos_cache.add((a, b))
                 return True
-            for y, ey in self.events.items():
-                if y not in seen and compare(sx, ey.stamp) is Order.BEFORE:
+            after = vc.get(x)
+            if after is None:
+                after = vc[x] = [y for y, ey in self.events.items()
+                                 if compare(sx, ey.stamp) is Order.BEFORE]
+            for y in after:
+                if y not in seen:
                     seen.add(y)
                     stack.append(y)
         return False
 
-    # ---- public API --------------------------------------------------------
-    def query_order(self, a: Key, b: Key) -> Optional[Order]:
-        """Existing order between two events, or None."""
+    def _order(self, a: Key, b: Key,
+               vc: Optional[Dict[Key, List[Key]]] = None) -> Optional[Order]:
         if a not in self.events or b not in self.events:
             return None
         if a == b:
             return Order.EQUAL
-        if self._reach_full(a, b):
+        if self._reach_full(a, b, vc):
             return Order.BEFORE
-        if self._reach_full(b, a):
+        if self._reach_full(b, a, vc):
             return Order.AFTER
         return None
 
-    def assert_order(self, a: Key, b: Key) -> None:
-        """Commit a ≺ b; raises CycleError if b ⤳ a already."""
-        if self._reach_full(a, b):
+    def _commit(self, a: Key, b: Key,
+                vc: Optional[Dict[Key, List[Key]]] = None) -> None:
+        if self._reach_full(a, b, vc):
             return
-        if self._reach_full(b, a):
+        if self._reach_full(b, a, vc):
             raise CycleError(f"cannot order {a} before {b}: reverse path exists")
         self.events[a].succ.add(b)
         self.events[b].pred.add(a)
         self.version += 1
+
+    # ---- public API --------------------------------------------------------
+    def query_order(self, a: Key, b: Key) -> Optional[Order]:
+        """Existing order between two events, or None."""
+        return self._order(a, b)
+
+    def assert_order(self, a: Key, b: Key) -> None:
+        """Commit a ≺ b; raises CycleError if b ⤳ a already."""
+        self._commit(a, b)
 
     def order_events(self, stamps: Sequence[Stamp],
                      kinds: Optional[Sequence[int]] = None) -> List[Key]:
@@ -174,13 +194,15 @@ class TimelineOracle:
                 seen.add(key)
                 keys.append(key)
         n = len(keys)
-        # pairwise existing constraints
+        # pairwise existing constraints; every search of the request,
+        # the commits' included, shares one cache of vclock successors
         pred_count = {k: 0 for k in keys}
         adj: Dict[Key, Set[Key]] = {k: set() for k in keys}
+        vc: Dict[Key, List[Key]] = {}
         for i in range(n):
             for j in range(i + 1, n):
                 a, b = keys[i], keys[j]
-                o = self.query_order(a, b)
+                o = self._order(a, b, vc)
                 if o is Order.BEFORE:
                     adj[a].add(b)
                 elif o is Order.AFTER:
@@ -207,7 +229,7 @@ class TimelineOracle:
             raise CycleError("constraint subgraph had a cycle")
         # commit missing edges along the chain
         for a, b in zip(out, out[1:]):
-            self.assert_order(a, b)
+            self._commit(a, b, vc)
         return out
 
 

@@ -63,6 +63,17 @@
 //   only if not set yet; block 0 zeroes flags[parity ^ 1] for the next
 //   round.  An index outside [0, N) is skipped and reported by bit 2.
 // - 64-bit edge offsets: each of g500_s24's arrays is 2.15 GB.
+//
+// Masked round (`masked_relax_kernel`, the rounds of a BFS at a refinable
+// timestamp over a table of edge versions, `core/analytics.bfs_levels_at`):
+// the same round over the edges whose bit is set in a visibility bit
+// stream (one uint32 word per 32 edges, bit k = edge k, least significant
+// first: the `mv_visibility` kernel's bit form).  A thread's 8 edges are
+// one byte of the stream (its tile offset is a multiple of 8), loaded
+// beside its edges; an invisible edge is dropped as an edge past the end
+// is (no gather, no candidate) and is not checked for range: a purged
+// version's ends are never read as a vertex.  The unmasked round is a
+// separate instantiation of the same body, so its code is unchanged.
 
 #include <climits>
 #include <cstdint>
@@ -122,18 +133,23 @@ __device__ __forceinline__ bool finish(int d, int m,
   return m < c;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-relax_kernel(const int* __restrict__ src, const int* __restrict__ dst,
-             const int* __restrict__ cur, int* __restrict__ nxt,
-             const unsigned char* __restrict__ cur8,
-             unsigned char* __restrict__ nxt8, int* __restrict__ flags,
-             int64_t n_edges, int n, int parity) {
+// One round over a block tile (the module note); kMasked reads the
+// visibility bits `visible` (the bit stream's bytes) and skips the edges
+// whose bit is clear.
+template <bool kVec, bool kMasked>
+__device__ __forceinline__ void relax_tile(
+    const int* __restrict__ src, const int* __restrict__ dst,
+    const unsigned char* __restrict__ visible, const int* __restrict__ cur,
+    int* __restrict__ nxt, const unsigned char* __restrict__ cur8,
+    unsigned char* __restrict__ nxt8, int* __restrict__ flags,
+    int64_t n_edges, int n, int parity) {
   const int lane = threadIdx.x & 31;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile +
                        static_cast<int64_t>(threadIdx.x) * kPer;
   int s[kPer], key[kPer];
   const bool whole = base + kPer <= n_edges;
+  unsigned live = 0xffu;                        // bit i: edge base + i
+  if (kMasked) live = base < n_edges ? __ldcs(visible + (base >> 3)) : 0u;
   if (kVec && whole) {
     const int4* s4 = reinterpret_cast<const int4*>(src + base);
     const int4* d4 = reinterpret_cast<const int4*>(dst + base);
@@ -155,11 +171,12 @@ relax_kernel(const int* __restrict__ src, const int* __restrict__ dst,
   int got[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
+    const bool seen = !kMasked || ((live >> i) & 1u);
     const bool ok = static_cast<unsigned>(s[i]) < static_cast<unsigned>(n) &&
                     static_cast<unsigned>(key[i]) < static_cast<unsigned>(n);
-    bad |= (whole || base + i < n_edges) && !ok;
-    if (!ok) key[i] = kNoKey;
-    got[i] = ok ? level_of(cur, cur8, s[i]) : kInf;
+    bad |= seen && (whole || base + i < n_edges) && !ok;
+    if (!ok || !seen) key[i] = kNoKey;
+    got[i] = ok && seen ? level_of(cur, cur8, s[i]) : kInf;
   }
   // runs of equal dst in this thread's edges: the first (head), the
   // last (tail), and those between, finished here
@@ -207,6 +224,29 @@ relax_kernel(const int* __restrict__ src, const int* __restrict__ dst,
       atomicOr(flags + parity, bits);
     if (blockIdx.x == 0) flags[parity ^ 1] = 0;
   }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+relax_kernel(const int* __restrict__ src, const int* __restrict__ dst,
+             const int* __restrict__ cur, int* __restrict__ nxt,
+             const unsigned char* __restrict__ cur8,
+             unsigned char* __restrict__ nxt8, int* __restrict__ flags,
+             int64_t n_edges, int n, int parity) {
+  relax_tile<kVec, false>(src, dst, nullptr, cur, nxt, cur8, nxt8, flags,
+                          n_edges, n, parity);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+masked_relax_kernel(const int* __restrict__ src, const int* __restrict__ dst,
+                    const unsigned char* __restrict__ visible,
+                    const int* __restrict__ cur, int* __restrict__ nxt,
+                    const unsigned char* __restrict__ cur8,
+                    unsigned char* __restrict__ nxt8, int* __restrict__ flags,
+                    int64_t n_edges, int n, int parity) {
+  relax_tile<kVec, true>(src, dst, visible, cur, nxt, cur8, nxt8, flags,
+                         n_edges, n, parity);
 }
 
 // Both level buffers INF, both mirrors 255, both flags 0.
@@ -277,6 +317,38 @@ extern "C" int bfs_round(const void* src, const void* dst, const void* cur,
   else
     relax_kernel<false><<<grid, kThreads, 0, st>>>(s, d, c, x, c8, x8, f,
                                                    n_edges, n, parity);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One masked round on `stream`: bfs_round's arguments and `visible`, the
+// edges' visibility bits (ceil(n_edges / 32) uint32 words, 4-byte
+// aligned); an edge whose bit is clear is skipped.
+extern "C" int bfs_round_masked(const void* src, const void* dst,
+                                const void* visible, const void* cur,
+                                void* nxt, const void* cur8, void* nxt8,
+                                void* flags, int64_t n_edges, int32_t n,
+                                int32_t parity, int32_t vec, void* stream) {
+  if (n_edges < 0 || n < 0 || (parity & ~1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int64_t tiles = (n_edges + kTile - 1) / kTile;
+  if (tiles < 1) tiles = 1;                     // still zeroes the flag
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* s = static_cast<const int*>(src);
+  const auto* d = static_cast<const int*>(dst);
+  const auto* v = static_cast<const unsigned char*>(visible);
+  const auto* c = static_cast<const int*>(cur);
+  auto* x = static_cast<int*>(nxt);
+  const auto* c8 = static_cast<const unsigned char*>(cur8);
+  auto* x8 = static_cast<unsigned char*>(nxt8);
+  auto* f = static_cast<int*>(flags);
+  const dim3 grid(static_cast<unsigned>(tiles));
+  if (vec)
+    masked_relax_kernel<true><<<grid, kThreads, 0, st>>>(
+        s, d, v, c, x, c8, x8, f, n_edges, n, parity);
+  else
+    masked_relax_kernel<false><<<grid, kThreads, 0, st>>>(
+        s, d, v, c, x, c8, x8, f, n_edges, n, parity);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,10 +26,16 @@
 // every sector crosses HBM anyway: the whole table's bytes are the bound
 // this layout can reach.
 //
-// One kernel (compare_kernel) in three modes:
+// One kernel body (compare_tiles) in four modes:
 //   before:       rows[i] ≺ q          (q one (C,) stamp)
 //   pairs:        rows[i] ≺ qs[i]      (qs (N, C) like rows)
 //   visibility:   create[i] ≺ q and not delete[i] ≺ q
+//   residue:      visibility's bits, and the list of the rows whose create
+//                 or delete stamp is concurrent with q (neither ≺ q nor
+//                 q ≺ it: same epoch, vector-incomparable or equal), the
+//                 rows that a query refines through the timeline oracle
+// The first three launch as compare_kernel, the fourth as
+// visibility_residue_kernel, so that a device trace tells them apart.
 // A block of 8 warps owns a block tile of 1,024 consecutive rows at a
 // time, whose rows are contiguous, 1024*C*4 bytes (a multiple of 16).  One
 // thread moves the whole block tile of each table the mode reads (rows;
@@ -61,6 +67,15 @@
 // instead; the evaluation and the stores are the same.  A slot whose bytes
 // never all arrive traps after kWaitNs instead of holding the card.
 //
+// Residue list: a uint64 count at res[0], then up to `cap` entries at
+// res[1..], each `row << 4 | flags` (bit 0 the create stamp concurrent
+// with q, bit 1 the delete stamp concurrent, bit 2 create ≺ q, bit 3
+// delete ≺ q), in no set order.  A warp with a concurrent row among its
+// 128 takes its entries' places with one atomicAdd on the count; the
+// count keeps counting past `cap`, so the caller sees an overflow.  In a
+// live deployment the list is short (the rows written since the last
+// clock announce), so its cost is the rare warp's atomic.
+//
 // `mv_compare_host` is the host entries' round trip: one host-to-device
 // copy of the packed inputs, the bit-form compare in any mode, one
 // device-to-host copy of the bit words, all on one stream without
@@ -74,7 +89,15 @@
 namespace {
 
 // What a launch compares; the values are the C interface's `mode`.
-enum class Mode : int { kBefore = 0, kPairs = 1, kVisibility = 2 };
+enum class Mode : int { kBefore = 0, kPairs = 1, kVisibility = 2,
+                        kResidue = 3 };
+
+// residue entries' flag bits (the module note)
+constexpr uint32_t kCreateConc = 1;
+constexpr uint32_t kDeleteConc = 2;
+constexpr uint32_t kCreateBefore = 4;
+constexpr uint32_t kDeleteBefore = 8;
+constexpr int kFlagBits = 4;
 
 constexpr int32_t kNoStamp = 0x7fffffff;
 constexpr int kThreads = 256;
@@ -135,6 +158,39 @@ __device__ __forceinline__ bool staged_before(const int32_t* row,
   return e != kNoStamp && (e < qe || (e == qe && le && !eq));
 }
 
+// row's relation to q: bit 0 row ≺ q, bit 1 row concurrent with q (not
+// NO_STAMP, same epoch, and every entry <= q's exactly when every entry
+// is >= q's: incomparable or equal vectors).
+template <int kC>
+__device__ __forceinline__ uint32_t staged_relation(const int32_t* row,
+                                                    const int32_t* q,
+                                                    int c) {
+  const int w = kC > 0 ? kC : c;
+  const int32_t e = row[0];
+  const int32_t qe = q[0];
+  bool le = true;
+  bool ge = true;
+#pragma unroll
+  for (int j = 1; j < w; ++j) {
+    le &= row[j] <= q[j];
+    ge &= row[j] >= q[j];
+  }
+  const bool same = e != kNoStamp && e == qe;
+  const bool before = e != kNoStamp && (e < qe || (same && le && !ge));
+  return (before ? 1u : 0u) | (same && le == ge ? 2u : 0u);
+}
+
+// A residue-mode row's flags (create row, delete row, q).
+template <int kC>
+__device__ __forceinline__ uint32_t residue_flags(const int32_t* create,
+                                                  const int32_t* del,
+                                                  const int32_t* q, int c) {
+  const uint32_t cr = staged_relation<kC>(create, q, c);
+  const uint32_t dr = staged_relation<kC>(del, q, c);
+  return ((cr >> 1) * kCreateConc) | ((dr >> 1) * kDeleteConc) |
+         ((cr & 1u) * kCreateBefore) | ((dr & 1u) * kDeleteBefore);
+}
+
 // The mode's predicate for one row: `row` is the first table's row,
 // `row2` the second table's (pairs: its query; visibility: its delete
 // row), q the shared query.
@@ -186,20 +242,54 @@ __device__ __forceinline__ void store_tile(void* __restrict__ out, int64_t t,
   }
 }
 
+// A warp's residue entries (rows first_row + lane + 32 j whose flag[j]
+// is set) to the list: one atomicAdd on the count for the warp, none
+// where no row of the warp's tile is concurrent.
+__device__ __forceinline__ void emit_residue(
+    unsigned long long* __restrict__ res, int64_t cap, int64_t first_row,
+    const uint32_t (&flag)[kPerLane], int lane) {
+  uint32_t mask[kPerLane];
+  int total = 0;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    mask[j] = __ballot_sync(0xffffffffu, flag[j] != 0);
+    total += __popc(mask[j]);
+  }
+  if (total == 0) return;               // warp-uniform
+  unsigned long long base = 0;
+  if (lane == 0) base = atomicAdd(res, static_cast<unsigned long long>(total));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  const uint32_t below = (1u << lane) - 1u;
+  unsigned long long off = base;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    if (flag[j]) {
+      const unsigned long long pos = off + __popc(mask[j] & below);
+      if (pos < static_cast<unsigned long long>(cap))
+        res[1 + pos] = (static_cast<unsigned long long>(first_row + lane +
+                                                        32 * j)
+                        << kFlagBits) |
+                       flag[j];
+    }
+    off += __popc(mask[j]);
+  }
+}
+
 // The mode's predicate over n rows of `rows` (and of `other`: pairs' qs,
-// visibility's delete rows; q is the shared (C,) query, unused by pairs),
-// to bytes or bits (kBits); kC > 0 is the width C known when compiled, 0
-// reads c.  A block owns a block tile of warps * kTile rows at a time and
-// keeps a ring of `stages` block tiles in shared memory, each slot with
-// its own mbarrier: one thread starts the bulk copies of a later block
-// tile while the block's warps evaluate the oldest, each warp its own
-// kTile rows.
+// visibility's and residue's delete rows; q is the shared (C,) query,
+// unused by pairs), to bytes or bits (kBits); kC > 0 is the width C known
+// when compiled, 0 reads c; residue mode also lists its concurrent rows
+// in `res` (at most `cap` entries).  A block owns a block tile of
+// warps * kTile rows at a time and keeps a ring of `stages` block tiles
+// in shared memory, each slot with its own mbarrier: one thread starts
+// the bulk copies of a later block tile while the block's warps evaluate
+// the oldest, each warp its own kTile rows.
 template <Mode kMode, bool kBits, int kC>
-__global__ void __launch_bounds__(kThreads)
-compare_kernel(const int32_t* __restrict__ rows,
-               const int32_t* __restrict__ other,
-               const int32_t* __restrict__ q, void* __restrict__ out,
-               int64_t n, int c_arg, int stages) {
+__device__ __forceinline__ void compare_tiles(
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ other,
+    const int32_t* __restrict__ q, void* __restrict__ out, int64_t n,
+    int c_arg, int stages, unsigned long long* __restrict__ res,
+    int64_t cap) {
   constexpr int kTables = kMode == Mode::kBefore ? 1 : 2;
   constexpr bool kShared = kMode != Mode::kPairs;   // one query for all
   extern __shared__ __align__(16) int32_t smem[];
@@ -272,18 +362,51 @@ compare_kernel(const int32_t* __restrict__ rows,
       const int rem = left < kTile ? left : kTile;
       const int32_t* w_rows = s_rows + warp * kTile * c;
       uint32_t word[kPerLane];
+      uint32_t flag[kPerLane];          // residue mode only
 #pragma unroll
       for (int j = 0; j < kPerLane; ++j) {
         const int r = lane + 32 * j;
         const int32_t* row = w_rows + r * c;
-        const bool p = r < rem &&
-                       hit<kMode, kC>(row, row + block_words, qr, c);
+        bool p;
+        if constexpr (kMode == Mode::kResidue) {
+          const uint32_t f =
+              r < rem ? residue_flags<kC>(row, row + block_words, qr, c) : 0u;
+          p = (f & kCreateBefore) && !(f & kDeleteBefore);
+          flag[j] = f & (kCreateConc | kDeleteConc) ? f : 0u;
+        } else {
+          p = r < rem && hit<kMode, kC>(row, row + block_words, qr, c);
+        }
         word[j] = __ballot_sync(0xffffffffu, p);
       }
       store_tile<kBits>(out, t * warps + warp, rem, word, lane);
+      if constexpr (kMode == Mode::kResidue)
+        emit_residue(res, cap, (t * warps + warp) * int64_t{kTile}, flag,
+                     lane);
     }
     __syncthreads();              // the slot is read before it is reused
   }
+}
+
+template <Mode kMode, bool kBits, int kC>
+__global__ void __launch_bounds__(kThreads)
+compare_kernel(const int32_t* __restrict__ rows,
+               const int32_t* __restrict__ other,
+               const int32_t* __restrict__ q, void* __restrict__ out,
+               int64_t n, int c_arg, int stages) {
+  compare_tiles<kMode, kBits, kC>(rows, other, q, out, n, c_arg, stages,
+                                  nullptr, 0);
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kThreads)
+visibility_residue_kernel(const int32_t* __restrict__ create,
+                          const int32_t* __restrict__ del,
+                          const int32_t* __restrict__ q,
+                          uint32_t* __restrict__ out, int64_t n, int c_arg,
+                          int stages, unsigned long long* __restrict__ res,
+                          int64_t cap) {
+  compare_tiles<Mode::kResidue, true, kC>(create, del, q, out, n, c_arg,
+                                          stages, res, cap);
 }
 
 int sm_count(int dev) {
@@ -299,16 +422,23 @@ int sm_count(int dev) {
   return sms;
 }
 
-// Launch compare_kernel<kMode, kBits, kC>: blocks of 8 warps with a ring
-// of kStages block tiles (fewer warps, then one stage, for rows too wide
-// to fit 227 KB of shared memory); as many blocks as are resident on the
-// card at once, or fewer for small n.
+// Launch compare_kernel<kMode, kBits, kC> (residue mode:
+// visibility_residue_kernel<kC>, the bit form): blocks of 8 warps with a
+// ring of kStages block tiles (fewer warps, then one stage, for rows too
+// wide to fit 227 KB of shared memory); as many blocks as are resident on
+// the card at once, or fewer for small n.
 template <Mode kMode, bool kBits, int kC>
 int launch_compare(const int32_t* rows, const int32_t* other,
                    const int32_t* q, void* out, int64_t n, int c,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, unsigned long long* res = nullptr,
+                   int64_t res_cap = 0) {
   if (c < 1 || c > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = compare_kernel<kMode, kBits, kC>;
+  constexpr bool kResidue = kMode == Mode::kResidue;
+  static_assert(!kResidue || kBits, "the residue mode writes bits");
+  auto kernel = [] {
+    if constexpr (kResidue) return visibility_residue_kernel<kC>;
+    else return compare_kernel<kMode, kBits, kC>;
+  }();
   const size_t warp_tile =
       size_t{kTile} * c * 4 * (kMode == Mode::kBefore ? 1 : 2);
   const size_t q_bytes =
@@ -345,8 +475,13 @@ int launch_compare(const int32_t* rows, const int32_t* other,
   const int64_t cap = static_cast<int64_t>(sm_count(dev)) * resident;
   const unsigned int grid =
       static_cast<unsigned int>(want < cap ? want : cap);
-  kernel<<<grid, warps * 32, smem, stream>>>(rows, other, q, out, n, c,
-                                             stages);
+  if constexpr (kResidue)
+    kernel<<<grid, warps * 32, smem, stream>>>(
+        rows, other, q, static_cast<uint32_t*>(out), n, c, stages, res,
+        res_cap);
+  else
+    kernel<<<grid, warps * 32, smem, stream>>>(rows, other, q, out, n, c,
+                                               stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,16 +489,18 @@ int launch_compare(const int32_t* rows, const int32_t* other,
 // gatekeepers), else the one that reads c.
 template <Mode kMode, bool kBits>
 int launch_width(const int32_t* rows, const int32_t* other, const int32_t* q,
-                 void* out, int64_t n, int c, cudaStream_t s) {
+                 void* out, int64_t n, int c, cudaStream_t s,
+                 unsigned long long* res = nullptr, int64_t res_cap = 0) {
   switch (c) {
-#define MV_WIDTH(W) \
-  case W:           \
-    return launch_compare<kMode, kBits, W>(rows, other, q, out, n, c, s);
+#define MV_WIDTH(W)                                                        \
+  case W:                                                                  \
+    return launch_compare<kMode, kBits, W>(rows, other, q, out, n, c, s,  \
+                                           res, res_cap);
     MV_WIDTH(2) MV_WIDTH(3) MV_WIDTH(4) MV_WIDTH(5)
     MV_WIDTH(6) MV_WIDTH(7) MV_WIDTH(8) MV_WIDTH(9)
 #undef MV_WIDTH
     default: return launch_compare<kMode, kBits, 0>(rows, other, q, out, n,
-                                                    c, s);
+                                                    c, s, res, res_cap);
   }
 }
 
@@ -415,6 +552,22 @@ extern "C" int mv_visibility(const int32_t* create, const int32_t* del,
                              int32_t c, int32_t bits, void* stream) {
   return launch_mode(2, create, del, q, out, n, c, bits,
                      static_cast<cudaStream_t>(stream));
+}
+
+// The residue mode on `stream`: zero the count at res[0], then one launch
+// that writes the visibility bits (ceil(n / 32) uint32 words at out) and
+// lists the concurrent rows in res (the module note; cap entries at
+// most).
+extern "C" int mv_visibility_residue(const int32_t* create, const int32_t* del,
+                                     const int32_t* q, void* out,
+                                     unsigned long long* res, int64_t cap,
+                                     int64_t n, int32_t c, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaMemsetAsync(res, 0, sizeof(*res), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_width<Mode::kResidue, true>(create, del, q, out, n, c, s, res,
+                                            cap);
 }
 
 // One host call's round trip on `stream`: copy in_bytes from pinned

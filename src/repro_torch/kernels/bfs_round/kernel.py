@@ -1,13 +1,14 @@
 """CUDA kernel: one BFS relaxation round, gather, +1 and segment min fused.
 
 The source is ``src/repro_torch/csrc/bfs_round.cu`` (``bfs_round``,
-``bfs_start``), built for ``sm_90a`` at first use and bound with
-``ctypes`` (see :mod:`repro_torch.kernels.build`).  The wrappers take
-CUDA tensors only, check what they can see without reading the card
-(device, dtype, shape, contiguity, that the two level buffers do not
-overlap), allocate with ``torch.empty`` and launch on the current
+``bfs_round_masked``, ``bfs_start``), built for ``sm_90a`` at first use
+and bound with ``ctypes`` (see :mod:`repro_torch.kernels.build`). The
+wrappers take CUDA tensors only, check what they can see without reading
+the card (device, dtype, shape, contiguity, that the two level buffers
+do not overlap), allocate with ``torch.empty`` and launch on the current
 stream; they never synchronise and read no device memory.
 ``launches["bfs_round"]`` counts the rounds launched,
+``launches["bfs_round_masked"]`` the masked ones,
 ``launches["bfs_start"]`` the states set up.
 
 State, for levels in [0, INF]: two int32 level buffers that ping-pong
@@ -22,7 +23,10 @@ returns, with the buffers swapped every round), ``nxt`` becomes
 :func:`.ref.round_` of ``cur``, bit for bit, and its mirror follows.
 ``flags[parity]`` gets bit 1 where that lowers some ``cur[v]`` and bit 2
 where an edge's end lies outside ``[0, N)`` (the edge is then skipped);
-``flags[parity ^ 1]`` is zeroed for the next round.
+``flags[parity ^ 1]`` is zeroed for the next round.  :func:`relax_masked`
+runs the same round over the edges whose bit is set in a visibility bit
+stream (``mv_visibility``'s bit form): :func:`.ref.round_` over those
+edges alone.
 """
 
 from __future__ import annotations
@@ -42,12 +46,14 @@ LOWERED, BAD_INDEX = 1, 2
 WIDE, UNREACHED = 254, 255
 
 #: launches per kernel since :func:`reset_launches`
-launches: Dict[str, int] = {"bfs_round": 0, "bfs_start": 0}
+launches: Dict[str, int] = {"bfs_round": 0, "bfs_round_masked": 0,
+                            "bfs_start": 0}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _ARGTYPES = [_P] * 7 + [_I64, _I32, _I32, _I32, _P]
+_MASKED_ARGTYPES = [_P] * 8 + [_I64, _I32, _I32, _I32, _P]
 _START_ARGTYPES = [_P] * 6 + [_I64, _I32, _P]
 _bound = None
 
@@ -62,6 +68,8 @@ def bind(lib: ctypes.CDLL) -> None:
     global _bound
     lib.bfs_round.argtypes = _ARGTYPES
     lib.bfs_round.restype = ctypes.c_int
+    lib.bfs_round_masked.argtypes = _MASKED_ARGTYPES
+    lib.bfs_round_masked.restype = ctypes.c_int
     lib.bfs_start.argtypes = _START_ARGTYPES
     lib.bfs_start.restype = ctypes.c_int
     _bound = lib
@@ -174,3 +182,30 @@ def relax(src: torch.Tensor, dst: torch.Tensor, cur: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"bfs_round launch failed with CUDA error {rc}")
     launches["bfs_round"] += 1
+
+
+def relax_masked(src: torch.Tensor, dst: torch.Tensor, bits: torch.Tensor,
+                 cur: torch.Tensor, nxt: torch.Tensor, cur8: torch.Tensor,
+                 nxt8: torch.Tensor, flags: torch.Tensor,
+                 parity: int) -> None:
+    """One round on the card over the edges whose bit is set in ``bits``
+    (contiguous int32, ceil(E / 32) words, bit k = edge k, least
+    significant first), in place as :func:`relax`."""
+    check(src, dst, cur, nxt, cur8, nxt8, flags)
+    if parity not in (0, 1):
+        raise ValueError(f"parity must be 0 or 1, got {parity}")
+    words = (src.numel() + 31) // 32
+    if (not isinstance(bits, torch.Tensor) or bits.dtype != torch.int32
+            or tuple(bits.shape) != (words,) or not bits.is_contiguous()
+            or bits.device != src.device):
+        raise ValueError(f"visibility bits must be a contiguous ({words},) "
+                         f"int32 tensor on {src.device}")
+    vec = int(src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0)
+    rc = build.launch_on(src, _lib().bfs_round_masked,
+                         *(t.data_ptr() for t in (src, dst, bits, cur, nxt,
+                                                  cur8, nxt8, flags)),
+                         src.numel(), cur.numel(), parity, vec)
+    if rc != 0:
+        raise RuntimeError(f"bfs_round_masked launch failed with CUDA error "
+                           f"{rc}")
+    launches["bfs_round_masked"] += 1

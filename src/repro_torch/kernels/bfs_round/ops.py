@@ -7,6 +7,8 @@ on the CPU through the plain version in :mod:`.ref`.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import kernel, ref
@@ -26,17 +28,21 @@ class Rounds:
             self.levels, self.flags = ref.start(n, sources)
             self.mirrors = None
 
-    def relax(self, src: torch.Tensor, dst: torch.Tensor,
-              r: int) -> torch.Tensor:
-        """Round ``r`` (from 0) over the edges ``src`` -> ``dst``; returns
-        the levels it wrote.  ``flags[r & 1]`` then holds bit 1 where a
-        level changed and, on a card, bit 2 where an edge's end or a
-        source lay outside [0, N)."""
+    def relax(self, src: torch.Tensor, dst: torch.Tensor, r: int,
+              bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Round ``r`` (from 0) over the edges ``src`` -> ``dst`` (with
+        ``bits``, a visibility bit stream of int32 words, over the edges
+        whose bit is set); returns the levels it wrote.  ``flags[r & 1]``
+        then holds bit 1 where a level changed and, on a card, bit 2 where
+        an edge's end or a source lay outside [0, N)."""
         p = r & 1
         cur, nxt = self.levels[p], self.levels[p ^ 1]
         if self.mirrors is None:
-            ref.relax(src, dst, cur, nxt, self.flags, p)
-        else:
+            ref.relax(src, dst, cur, nxt, self.flags, p, bits)
+        elif bits is None:
             kernel.relax(src, dst, cur, nxt, self.mirrors[p],
                          self.mirrors[p ^ 1], self.flags, p)
+        else:
+            kernel.relax_masked(src, dst, bits, cur, nxt, self.mirrors[p],
+                                self.mirrors[p ^ 1], self.flags, p)
         return nxt

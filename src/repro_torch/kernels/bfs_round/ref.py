@@ -11,7 +11,11 @@ is held against on the card.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..mv_visibility.ref import unpack_bits
 
 INF = 2 ** 31 - 1
 
@@ -38,10 +42,16 @@ def start(n: int, sources: torch.Tensor) -> tuple:
 
 
 def relax(src: torch.Tensor, dst: torch.Tensor, cur: torch.Tensor,
-          nxt: torch.Tensor, flags: torch.Tensor, parity: int) -> None:
+          nxt: torch.Tensor, flags: torch.Tensor, parity: int,
+          bits: Optional[torch.Tensor] = None) -> None:
     """The kernel's round (:func:`.kernel.relax`) in plain PyTorch, with
-    no mirrors: ``nxt`` becomes :func:`round_` of ``cur``,
-    ``flags[parity]`` whether it changed, ``flags[parity ^ 1]`` 0."""
+    no mirrors: ``nxt`` becomes :func:`round_` of ``cur`` (with ``bits``,
+    int32 words of a visibility bit stream, over the edges whose bit is
+    set: :func:`.kernel.relax_masked`), ``flags[parity]`` whether it
+    changed, ``flags[parity ^ 1]`` 0."""
+    if bits is not None:
+        seen = unpack_bits(bits, src.numel())
+        src, dst = src[seen], dst[seen]
     nd, changed = round_(src, dst, cur)
     nxt.copy_(nd)
     flags[parity] = changed

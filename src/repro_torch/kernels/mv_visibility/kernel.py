@@ -1,8 +1,9 @@
 """CUDA kernels: batched refinable-timestamp compares on the card.
 
 The sources are ``src/repro_torch/csrc/mv_visibility.cu`` (``before``,
-``visibility``, ``before_pairs``), built for ``sm_90a`` at first use and
-bound with ``ctypes`` (see :mod:`repro_torch.kernels.build`).
+``visibility``, ``before_pairs``, ``visibility_residue``), built for
+``sm_90a`` at first use and bound with ``ctypes`` (see
+:mod:`repro_torch.kernels.build`).
 
 Two kinds of entry:
 
@@ -11,7 +12,9 @@ Two kinds of entry:
   its output with ``torch.empty`` and launches on the current stream
   without synchronising.  Each returns one bool per row, or with
   ``bits=True`` one int32 word per 32 rows (bit k of the stream is row k,
-  least significant bit first).
+  least significant bit first).  :func:`visibility_residue` writes the
+  visibility bits and, into the caller's buffer, the list of rows whose
+  create or delete stamp is concurrent with the query, in one launch.
 * Host-facing (:func:`before_host`, :func:`before_pairs_host`,
   :func:`visibility_host`): numpy stamp rows in, a numpy bool mask out,
   in one round trip: the inputs are packed into a pinned host buffer,
@@ -54,7 +57,14 @@ MAX_C = 226
 PACK_LIMIT = 1 << 20
 
 #: launches per kernel since :func:`reset_launches`
-launches: Dict[str, int] = {"before": 0, "visibility": 0, "before_pairs": 0}
+launches: Dict[str, int] = {"before": 0, "visibility": 0, "before_pairs": 0,
+                            "visibility_residue": 0}
+
+#: flag bits of a residue entry ``row << FLAG_BITS | flags`` (the CUDA
+#: source's module note): the create or the delete stamp concurrent with
+#: the query, and each one before it
+CREATE_CONC, DELETE_CONC, CREATE_BEFORE, DELETE_BEFORE = 1, 2, 4, 8
+FLAG_BITS = 4
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -63,6 +73,7 @@ _ARGTYPES = {
     "mv_before": [_P, _P, _P, _I64, _I32, _I32, _P],
     "mv_visibility": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
     "mv_before_pairs": [_P, _P, _P, _I64, _I32, _I32, _P],
+    "mv_visibility_residue": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _P],
     "mv_compare_host": [_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I32, _I32,
                         _P],
 }
@@ -188,6 +199,41 @@ def before_pairs(rows: torch.Tensor, qs: torch.Tensor,
     ``bits`` (ceil(N / 32),) int32 words."""
     return _launch("before_pairs", "mv_before_pairs", (rows,), qs, True,
                    bits)
+
+
+def visibility_residue(create: torch.Tensor, delete: torch.Tensor,
+                       q: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    """One launch: the visibility bits (``create[i] ≺ q and not
+    delete[i] ≺ q``, (ceil(N / 32),) int32 words) returned, and in ``res``
+    (a contiguous int64 CUDA tensor of ``1 + cap`` entries) the count of
+    rows whose create or delete stamp is concurrent with ``q`` at
+    ``res[0]``, then up to ``cap`` entries ``row << FLAG_BITS | flags`` in
+    no set order.  The count keeps counting past ``cap``."""
+    check((create, delete), q, per_row=False)
+    dev = create.device
+    if dev.type != "cuda":
+        raise ValueError(f"the visibility_residue kernel takes CUDA tensors, "
+                         f"got {dev}")
+    if (not isinstance(res, torch.Tensor) or res.dtype != torch.int64
+            or res.dim() != 1 or res.numel() < 1 or not res.is_contiguous()
+            or res.device != dev):
+        raise ValueError(f"the residue list must be a contiguous 1-D int64 "
+                         f"tensor of 1 + cap entries on {dev}")
+    n, c = create.shape
+    _check_width(c)
+    out = torch.empty(((n + 31) // 32,), dtype=torch.int32, device=dev)
+    if n == 0:
+        res[0] = 0
+        return out
+    rc = build.launch_on(create, _lib().mv_visibility_residue,
+                         create.data_ptr(), delete.data_ptr(), q.data_ptr(),
+                         out.data_ptr(), res.data_ptr(), res.numel() - 1,
+                         n, c)
+    if rc != 0:
+        raise RuntimeError(f"mv_visibility_residue launch failed with CUDA "
+                           f"error {rc}")
+    launches["visibility_residue"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

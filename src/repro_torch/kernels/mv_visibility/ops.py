@@ -11,14 +11,54 @@ The host entries (:func:`before_host`, :func:`before_pairs_host`,
 caller's ``device`` string picks the route: ``"cpu"`` runs the plain
 version, a CUDA device the kernel's one-round-trip host entry
 (``kernel.before_host`` and its siblings).
+
+:func:`visibility_residue` keeps the bits on the tensors' device and
+lists the rows whose stamps are concurrent with the query (the residue a
+query refines through the timeline oracle); :func:`read_residue` brings
+that list to the host in one copy.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import kernel, ref
+
+#: entries of the residue list a card keeps room for at first (it grows
+#: when a launch overflows it)
+RESIDUE_CAP = 4096
+#: entries read with the count in :func:`read_residue`'s one copy
+RESIDUE_READ = 1024
+
+_residue: Dict[torch.device, torch.Tensor] = {}
+
+
+class ResidueOverflow(Exception):
+    """The residue had more rows than the list held; ``count`` says how
+    many."""
+
+    def __init__(self, count: int):
+        super().__init__(f"{count} concurrent rows overflow the residue "
+                         f"list")
+        self.count = count
+
+
+def residue_buffer(device, need: int = RESIDUE_CAP) -> torch.Tensor:
+    """The residue list on ``device``: an int64 tensor of ``1 + cap``
+    entries, made at first use and grown (doubling) to hold ``need``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    buf = _residue.get(dev)
+    if buf is None or buf.numel() - 1 < need:
+        cap = max(need, 2 * (buf.numel() - 1) if buf is not None else 0,
+                  RESIDUE_CAP)
+        buf = _residue[dev] = torch.empty(1 + cap, dtype=torch.int64,
+                                          device=dev)
+    return buf
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -44,6 +84,45 @@ def visibility_mask(create_rows: torch.Tensor, delete_rows: torch.Tensor,
         kernel.check((create_rows, delete_rows), q, per_row=False)
         return ref.visibility(create_rows, delete_rows, q)
     return kernel.visibility(create_rows, delete_rows, q)
+
+
+def visibility_residue(create_rows: torch.Tensor, delete_rows: torch.Tensor,
+                       q: torch.Tensor, res: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(bits, res)``: the (ceil(N / 32),) int32 visibility words, and
+    the residue list ``res`` (int64: the count of rows whose create or
+    delete stamp is concurrent with q, then their entries ``row <<
+    kernel.FLAG_BITS | flags``), both on the rows' device.  On a card one
+    launch of the residue mode into ``res`` (default
+    :func:`residue_buffer`); on the CPU the plain version, with ``res``
+    made to fit."""
+    if _on_cpu(create_rows):
+        kernel.check((create_rows, delete_rows), q, per_row=False)
+        bits, entries = ref.visibility_residue(create_rows, delete_rows, q)
+        count = torch.tensor([entries.numel()], dtype=torch.int64)
+        return bits, torch.cat([count, entries])
+    if res is None:
+        res = residue_buffer(create_rows.device)
+    return kernel.visibility_residue(create_rows, delete_rows, q, res), res
+
+
+def read_residue(res: torch.Tensor, prefix: int = RESIDUE_READ
+                 ) -> np.ndarray:
+    """The residue list's entries on the host, sorted (so by row): one
+    device-to-host copy of the count and the first ``prefix`` entries,
+    and a second one only for entries beyond them.  Raises
+    :class:`ResidueOverflow` where the launch counted more rows than
+    ``res`` holds."""
+    head = res[:1 + min(prefix, res.numel() - 1)].cpu().numpy()
+    count = int(head[0])
+    if count > res.numel() - 1:
+        raise ResidueOverflow(count)
+    if count < head.size:
+        entries = head[1:1 + count]
+    else:
+        entries = np.concatenate([head[1:],
+                                  res[head.size:1 + count].cpu().numpy()])
+    return np.sort(entries)
 
 
 def before_pairs(rows: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:

@@ -37,12 +37,48 @@ def visibility(create: torch.Tensor, delete: torch.Tensor,
     return before(create, q) & ~before(delete, q)
 
 
+def concurrent(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``rows[i]`` concurrent with q: (N, C) int32, q (C,) -> (N,) bool
+    (not ``NO_STAMP``, same epoch, vector-incomparable or equal; the
+    packed row does not carry the issuing gatekeeper, so equal vectors
+    count here and the caller's :class:`Stamp` settles them)."""
+    same = (rows[:, 0] != NO_STAMP) & (rows[:, 0] == q[0])
+    le = (rows[:, 1:] <= q[1:]).all(dim=1)
+    ge = (rows[:, 1:] >= q[1:]).all(dim=1)
+    return same & (le == ge)
+
+
+def visibility_residue(create: torch.Tensor, delete: torch.Tensor,
+                       q: torch.Tensor) -> tuple:
+    """``(bits, entries)``: the visibility bits (:func:`pack_bits` of
+    :func:`visibility`) and, sorted by row, one int64 entry ``row << 4 |
+    flags`` for each row whose create or delete stamp is concurrent with
+    q (flag bits: 1 create concurrent, 2 delete concurrent, 4 create ≺ q,
+    8 delete ≺ q), the kernel's residue mode."""
+    cb, db = before(create, q), before(delete, q)
+    cc, dc = concurrent(create, q), concurrent(delete, q)
+    rows = (cc | dc).nonzero().squeeze(1)
+    flags = (cc[rows].long() | dc[rows].long() << 1 | cb[rows].long() << 2
+             | db[rows].long() << 3)
+    return pack_bits(cb & ~db), rows << 4 | flags
+
+
+def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(ceil(N / 32),) int32 words -> (N,) bool, the inverse of
+    :func:`pack_bits`."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    b = words.contiguous().view(torch.uint8)
+    return ((b.unsqueeze(1) >> shifts) & 1).view(-1)[:n].bool()
+
+
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     """(N,) bool -> (ceil(N / 32),) int32 words, bit k of the stream = row
     k, least significant bit first (the kernels' bit form; the bytes of
     the words are ``np.packbits(mask, bitorder="little")``, zero-padded)."""
     n = mask.shape[0]
     words = (n + 31) // 32
+    if words == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=mask.device)
     bits = torch.zeros((words * 32,), dtype=torch.uint8, device=mask.device)
     bits[:n] = mask
     bits = bits.view(words * 4, 8)

@@ -125,7 +125,8 @@ def test_cpu_tensors_take_the_plain_round():
     assert got is state.levels[1]
     assert torch.equal(got, want) and bool(changed)
     assert state.flags.tolist() == [1, 0]
-    assert kernel.launches == {"bfs_round": 0, "bfs_start": 0}
+    assert kernel.launches == {"bfs_round": 0, "bfs_round_masked": 0,
+                               "bfs_start": 0}
     # the plain round is the one bfs_levels ran before the kernel: gather,
     # clamp + 1, amin scatter, minimum
     cand = (cur[src].clamp(max=INF - 1) + 1)

@@ -57,3 +57,47 @@ def test_scalar_forms_and_packing_match():
     for o in others:
         assert (port_clock.compare(s, port_clock.Stamp(*o)).name
                 == ref_clock.compare(r, ref_clock.Stamp(*o)).name)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_oracle_requests_match_the_reference(seed):
+    """The port's TimelineOracle (whose requests share one cache of
+    vclock successors) == the reference's: one seeded sequence of
+    requests over stamps from four gatekeepers that announce at random,
+    with GC, gives the same chains, the same answers and the same
+    committed edges."""
+    from repro.core import oracle as ref_oracle
+    from repro_torch.core import oracle as port_oracle
+    rng = np.random.default_rng(seed)
+    g = 4
+    clocks = [[0] * g for _ in range(g)]
+    made = []
+    ref, port = ref_oracle.TimelineOracle(), port_oracle.TimelineOracle()
+    for step in range(120):
+        k = int(rng.integers(g))
+        clocks[k][k] += 1
+        made.append((tuple(clocks[k]), k))
+        if rng.random() < 0.3:
+            a = int(rng.integers(g))
+            for j in range(g):
+                clocks[j] = [max(x, y) for x, y in zip(clocks[j], clocks[a])]
+        if step % 6 == 5:
+            pick = rng.choice(len(made), min(len(made), 7), replace=False)
+            kinds = [int(rng.integers(2)) for _ in pick]
+            chains = [o.order_events([mod.Stamp(0, made[i][0], made[i][1],
+                                                made[i][0][made[i][1]])
+                                      for i in pick], kinds)
+                      for o, mod in ((ref, ref_clock), (port, port_clock))]
+            assert chains[0] == chains[1]
+        if step % 40 == 39:
+            h = tuple(min(c[j] for c in clocks) for j in range(g))
+            assert ref.collect(ref_clock.Stamp(0, h, -1, 0)) == port.collect(
+                port_clock.Stamp(0, h, -1, 0))
+    assert set(ref.events) == set(port.events)
+    for key, ev in ref.events.items():
+        assert port.events[key].succ == ev.succ
+    keys = sorted(ref.events)
+    for a in keys[:12]:
+        for b in keys[:12]:
+            want, got = ref.query_order(a, b), port.query_order(a, b)
+            assert getattr(want, "name", None) == getattr(got, "name", None)

@@ -55,6 +55,13 @@ def test_cuda_kernels_match_plain():
                            ref.visibility(a[0], a[1], a[2]))
         assert torch.equal(kernel.before_pairs(a[0], a[3]),
                            ref.before_pairs(a[0], a[3]))
+        res = torch.empty(1 + n, dtype=torch.int64, device=dev)
+        bits = kernel.visibility_residue(a[0], a[1], a[2], res)
+        want_bits, want_entries = ref.visibility_residue(a[0], a[1], a[2])
+        assert torch.equal(bits, want_bits)
+        assert int(res[0]) == want_entries.numel()
+        assert torch.equal(res[1:1 + int(res[0])].sort().values,
+                           want_entries)
     torch.cuda.synchronize()
     assert kernel.launches == {k: len(shapes) for k in kernel.launches}
     empty = torch.zeros((0, 3), dtype=torch.int32, device=dev)
@@ -79,7 +86,8 @@ def test_stamp_compare_forms_and_host_entries_match_plain():
         n_cases += 1
     assert kernel.launches == {"before": 3 * n_cases,
                                "visibility": 3 * n_cases,
-                               "before_pairs": 3 * n_cases}
+                               "before_pairs": 3 * n_cases,
+                               "visibility_residue": 0}
     assert kernel.before_host(np.zeros((0, 3), np.int32),
                               np.zeros(3, np.int32)).shape == (0,)
     assert kernel.launches["before"] == 3 * n_cases          # no launch
@@ -116,7 +124,7 @@ def test_host_entries_allocate_nothing_when_warm():
             kernel.visibility_host(rows[:m], dele[:m], q), want_v[:m])
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
     assert kernel.launches == {"before": 100, "visibility": 100,
-                               "before_pairs": 100}
+                               "before_pairs": 100, "visibility_residue": 0}
     kernel.reset_launches()
 
 
